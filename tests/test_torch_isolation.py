@@ -1,0 +1,124 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+  - no module of `src/repro_torch` (nor `chip_smoke.py`) imports `jax` or
+    anything of `repro`, by an AST scan and by importing every module in a
+    fresh interpreter;
+  - entry points asked for no device raise where CUDA is absent, and run
+    on the CPU only when `device="cpu"` is passed;
+  - a kernel wrapper given CPU tensors runs the plain version and counts
+    no launch.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import t
+from repro_torch.kernels import frontier as fr
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_imports_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    mods = list(_modules())
+    assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _cpu_parts():
+    from repro_torch.core.router import Router, RouterConfig
+    from repro_torch.core.storage import build_storage
+    from repro_torch.graph.csr import to_padded
+    from repro_torch.graph.generators import community_graph
+
+    g = community_graph(n=120, community_size=30, seed=0)
+    tier = build_storage(to_padded(g), n_shards=2, device="cpu")
+    router = Router(2, RouterConfig(scheme="hash"), device="cpu")
+    return g, tier, router
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from repro_torch import resolve_device
+    from repro_torch.core.cache import make_cache
+    from repro_torch.core.dispatch import make_backlog
+    from repro_torch.core.landmarks import build_landmark_index
+    from repro_torch.core.router import Router, RouterConfig
+    from repro_torch.core.storage import build_storage
+    from repro_torch.graph.csr import to_padded
+    from repro_torch.serve.engine import EngineRunConfig, ServingEngine
+
+    g, tier, router = _cpu_parts()
+    cfg = EngineRunConfig(n_processors=2)
+    calls = [
+        lambda: resolve_device(),
+        lambda: resolve_device("cuda"),
+        lambda: ServingEngine(tier, router, cfg),
+        lambda: make_cache(4, 2, 3),
+        lambda: make_backlog(4),
+        lambda: build_storage(to_padded(g), n_shards=2),
+        lambda: Router(2, RouterConfig(scheme="hash")),
+        lambda: build_landmark_index(g, 2, n_landmarks=4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert ServingEngine(tier, router, cfg, device="cpu").device.type == "cpu"
+
+
+def test_wrapper_on_cpu_tensors_runs_plain_version_without_counting():
+    rng = np.random.default_rng(0)
+    rows = t(rng.integers(-1, 40, (2, 3, 4)).astype(np.int32))
+    deg = t(rng.integers(0, 5, (2, 3)).astype(np.int32))
+    vis = torch.zeros((2, 40), dtype=torch.bool)
+    before = dict(fr.LAUNCHES)
+    out = fr.frontier_expand_batched(rows, deg, vis.clone())
+    words = fr.frontier_expand_packed(rows, deg, fr.pack_words(vis), 40)
+    assert dict(fr.LAUNCHES) == before
+    assert out.any() and torch.equal(fr.pack_words(out), words)
