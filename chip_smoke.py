@@ -2,13 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, holds each
-against its plain PyTorch version on the card, serves the 262,144-node
-power-law preset end to end through `ServingEngine` (hash and landmark
-routing, dense and packed visited sets), checks the launch counts and the
-results, and replays an oversubscribed run with a colliding cache on the
-card and on the CPU, field by field. Any mismatch raises; there is no
-fallback to the CPU. The last line is {"ok": true, "device": {...}}.
+Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
+
+  1. holds each kernel against its plain PyTorch version on the card
+     (the frontier kernels at the serving shapes, the flash-attention
+     kernel at the Qwen3-4B prefill shape, a Gemma2-like local layer and
+     small, ragged and fully masked cases), with times and bounds;
+  2. serves the 262,144-node power-law preset end to end through
+     `ServingEngine` (hash and landmark routing, dense and packed visited
+     sets), checks the launch counts and the results, and profiles it;
+  3. replays an oversubscribed run with a colliding cache on the card and
+     on the CPU, field by field;
+  4. serves Qwen3-4B at full width in bf16 (random weights from a seed):
+     4 prompts of 4,096 tokens prefilled, then 64 greedy decode steps;
+     checks 36 flash launches per prefill and none in decode, finite
+     logits, and that teacher-forced decode of the last prompt token
+     gives the prefill's last logits; profiles one prefill;
+  5. runs a 2-layer Qwen3-4B at full width in float32 on the card and on
+     the CPU and holds the prefill's logits and KV against each other.
+
+Any mismatch raises; there is no fallback to the CPU. The last line is
+{"ok": true, "device": {...}}.
 
 Needs one CUDA device; exits non-zero without one. Imports no JAX.
 """
@@ -26,23 +40,51 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, float32 CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MAIN_SHAPES = dict(B=16, F=4096, W=64, n=262144)  # one processor's hop at scale
 EDGE_SHAPES = [  # word seams, F not a multiple of 128, tiny
     dict(B=3, F=5, W=7, n=33), dict(B=2, F=130, W=9, n=34),
     dict(B=4, F=17, W=3, n=142), dict(B=1, F=1, W=1, n=1),
 ]
-KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device symbol)
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device symbol, source)
     "frontier_expand_batched": ("frontier_expand_batched_ref",
                                 "src/repro/kernels/frontier.py:190",
-                                "frontier_dense_kernel"),
+                                "frontier_dense_kernel", CSRC + "frontier.cu"),
     "frontier_expand_packed": ("frontier_expand_packed_ref",
                                "src/repro/kernels/frontier.py:260",
-                               "frontier_packed_kernel"),
+                               "frontier_packed_kernel", CSRC + "frontier.cu"),
+    "flash_attention": ("attention_ref", "src/repro/kernels/flash_attention.py:99",
+                        "flash_attention_kernel", CSRC + "flash_attention.cu"),
 }
 KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
-SOURCE = "src/repro_torch/kernels/csrc/frontier.cu"
 TIMING_FIELDS = ("wall_s", "throughput_qps")
+
+# flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
+# causal, window, softcap, dtype); the first is the Qwen3-4B prefill shape
+# of one request, whose numbers go into the kernel line
+ATTN_SHAPES = [
+    ("qwen3-4b prefill", 1, 32, 8, 4096, 4096, 128, True, None, None, torch.bfloat16),
+    ("gemma2-like local", 1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, torch.bfloat16),
+    ("float32 GQA", 1, 8, 2, 1024, 1024, 128, True, None, None, torch.float32),
+    ("MQA", 2, 16, 1, 2048, 2048, 128, True, None, None, torch.bfloat16),
+    ("bidirectional", 2, 8, 8, 1024, 1024, 64, False, None, None, torch.bfloat16),
+    ("ragged, window+softcap", 2, 4, 2, 77, 77, 32, True, 30, 20.0, torch.float32),
+    ("ragged Sq != Skv", 1, 4, 2, 100, 300, 16, False, None, None, torch.float32),
+    ("fully masked rows", 1, 4, 2, 128, 128, 64, True, 0, None, torch.float32),
+]
+# (atol, rtol) of the kernel against the plain version on float32 copies of
+# its inputs, which is what the kernel computes: the bf16 output rounds by
+# at most 2^-8 relative, the float32 one by sums in another order
+ATTN_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 2e-5)}
+LEAK_KEYS = 64  # the tolerance self-check: a kernel that leaks one key tile
+
+# Qwen3-4B serving (phase 4) and the card-vs-CPU check (phase 5)
+LM_BATCH, LM_PROMPT, LM_DECODE, LM_MAX_SEQ = 4, 4096, 64, 4160
+TEACHER_FORCED_REL_TOL = 0.1  # relative L2 error, bf16 decode vs prefill (PERF.md)
+CARD_VS_CPU_TOL = 1e-3  # max error over max |value|, float32 (PERF.md)
 
 
 def log(*a):
@@ -57,7 +99,7 @@ def nvidia_smi() -> str:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernels against their plain versions
+# Phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -126,7 +168,7 @@ def check_kernels(device):
     from repro_torch.kernels import ref
 
     rows_out = {}
-    for kind in KERNELS:
+    for kind in KERNELS_BY_LAYOUT.values():
         max_err = 0
         for shapes in [MAIN_SHAPES] + EDGE_SHAPES:
             rows, deg, vis = kernel_inputs(**shapes, device=device)
@@ -148,7 +190,7 @@ def check_kernels(device):
             k_ms = median_ms(lambda: fr.frontier_expand_packed(rows, deg, words, n))
             p_ms = median_ms(lambda: ref.frontier_expand_packed_ref(rows, deg, words, n))
         b_ms = bound_ms(kind, rows, deg, vis)
-        rows_out[kind] = dict(name=kind, route="cuda", source=SOURCE,
+        rows_out[kind] = dict(name=kind, route="cuda", source=KERNELS[kind][3],
                               replaces=KERNELS[kind][1], launches=0,
                               max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                               bound_ms=b_ms, bound_by="bytes", library_ms=None)
@@ -159,7 +201,7 @@ def check_kernels(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the serving engine
+# Phases 2 and 3: the serving engine
 # ---------------------------------------------------------------------------
 
 
@@ -188,14 +230,15 @@ def assert_same_result(a, b, what):
             raise AssertionError(f"{what}: {f.name} {x} != {y}")
 
 
-def main_path(device, preset="large", n_queries=256, n_landmarks=24):
-    """Phase 4: the repo's scale run (benchmarks/bench_engine.py _scale_bench
-    settings) with the kernels, against the same runs on the scatter backend."""
+def main_path(device, preset="large", n_queries=128, n_landmarks=24):
+    """Phase 2: the repo's scale run (benchmarks/bench_engine.py _scale_bench
+    settings, cut from 256 to 128 queries to leave the LM phases their time)
+    with the kernels, against the same runs on the scatter backend."""
     from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.storage import build_storage
     from repro_torch.core.workloads import preset_workload
     from repro_torch.graph.csr import to_padded
-    from repro_torch.kernels import frontier as fr
+    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.serve.engine import EngineRunConfig
 
     t = time.perf_counter()
@@ -213,16 +256,16 @@ def main_path(device, preset="large", n_queries=256, n_landmarks=24):
     base = EngineRunConfig(
         n_processors=4, round_size=16, capacity=16, hops=2, max_frontier=4096,
         cache_sets=4096, cache_ways=8, chain_depth=64, expand_backend="cuda")
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in KERNELS_BY_LAYOUT.values()}
     cells = []
     for scheme in ("hash", "landmark"):
         by_layout = {}
         for layout in ("dense", "packed"):
             cfg = dataclasses.replace(base, visited_layout=layout)
             eng = make_engine(tier, li, scheme, cfg, device)
-            fr.LAUNCHES.clear()  # counts of this main-path run only
+            LAUNCHES.clear()  # counts of this main-path run only
             res, _ = eng.run(wl)
-            counted = dict(fr.LAUNCHES)
+            counted = dict(LAUNCHES)
             kernel = KERNELS_BY_LAYOUT[layout]
             if counted.get(kernel, 0) == 0 or sum(counted.values()) != counted[kernel]:
                 raise AssertionError(f"{scheme}/{layout}: launches {counted}")
@@ -292,7 +335,7 @@ def profile_cell(tier, li, wl, base, scheme, layout, device):
 
 
 def oversubscribed(device, cpu="cpu"):
-    """Phase 5: 2x oversubscription, colliding cache (64 sets x 2 ways), the
+    """Phase 3: 2x oversubscription, colliding cache (64 sets x 2 ways), the
     run on `device` against the port's run on the CPU, field by field."""
     from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.storage import build_storage
@@ -325,6 +368,335 @@ def oversubscribed(device, cpu="cpu"):
                 f"equal to the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# Phase 1, flash attention: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def attn_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs the function must weigh: the unmasked ones, and
+    every key for a row with none unmasked (its output is the mean of v)."""
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv, q + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, q - window + 1) if window is not None else np.zeros(Sq, np.int64)
+    n = hi - lo
+    return int(np.where(n > 0, n, Skv).sum())
+
+
+def attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
+    """Least time for these inputs: 4 D flops per pair (two products) at the
+    dtype's dense peak, against q, k, v read once and o written once at the
+    HBM rate; (the larger, which one it is, the flops)."""
+    flops = 4 * D * B * Hq * attn_pairs(Sq, Skv, causal, window)
+    nbytes = dtype.itemsize * D * B * (2 * Hq * Sq + 2 * Hkv * Skv)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", flops) if t_ops >= t_bytes else (t_bytes, "bytes", flops)
+
+
+def check_flash(device):
+    """The flash kernel against `attention_ref` on float32 copies of its
+    inputs (the kernel casts to float32 as the TPU kernel does) at every
+    ATTN_SHAPES entry: |kernel - plain| <= atol + rtol * |plain|, plus the
+    mean of v for fully masked rows. At the first shape, a plain version
+    that leaks the key tile above the diagonal must fail that tolerance on
+    the second half of the rows, where a typical output is small. Kernel,
+    plain and SDPA times (median of CUDA events) beside the bound. TF32 is
+    off while it runs, so that float32 products are float32."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _check_flash(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _check_flash(device):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    g = torch.Generator(device=device).manual_seed(0)
+    results = []
+    leak = None
+    for name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype in ATTN_SHAPES:
+        q = torch.randn(B, Hq, Sq, D, generator=g, device=device).to(dtype)
+        k = torch.randn(B, Hkv, Skv, D, generator=g, device=device).to(dtype)
+        v = torch.randn(B, Hkv, Skv, D, generator=g, device=device).to(dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out = flash_attention(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        plain = attention_ref(qf, kf, vf, **kw)
+        atol, rtol = ATTN_TOL[dtype]
+        diff = (out - plain).abs()
+        err = float(diff.max())
+        if not bool((diff <= atol + rtol * plain.abs()).all()):
+            raise AssertionError(f"flash_attention != attention_ref at {name}: max err {err}")
+        if leak is None and causal and window is None:
+            # query i sees keys up to i + LEAK_KEYS: the error of a kernel
+            # that does not mask the tile above the diagonal
+            wrong = attention_ref(qf, kf, vf, q_offset=LEAK_KEYS, **kw)
+            late = (slice(None), slice(None), slice(Sq // 2, None))
+            wd, ref_late = (wrong - plain)[late].abs(), plain[late].abs()
+            leak = dict(shape=name, keys=LEAK_KEYS, rows=f"{Sq // 2}..{Sq - 1}",
+                        max_abs_err=float(wd.max()),
+                        median_abs_out=float(ref_late.median()),
+                        share_over_tol=float((wd > atol + rtol * ref_late).float().mean()),
+                        share_over_2e2=float((wd > 2e-2 + 2e-2 * ref_late).float().mean()))
+            log(f"[flash] tolerance self-check at {name}: a kernel leaking {LEAK_KEYS} keys "
+                f"errs by up to {leak['max_abs_err']:.4g} on rows {leak['rows']} (median "
+                f"|out| {leak['median_abs_out']:.4g}); share of elements over the tolerance "
+                f"{leak['share_over_tol']:.4f}, over 2e-2 + 2e-2|out| {leak['share_over_2e2']:.4f}")
+            if not leak["share_over_tol"] > 0:
+                raise AssertionError("the flash tolerance passes a kernel that leaks a key tile")
+            del wrong, wd, ref_late
+        if window == 0:  # every key masked: the mean of v, as the reference
+            mean_v = vf.mean(dim=2, keepdim=True).repeat_interleave(Hq // Hkv, dim=1)
+            if not torch.allclose(out, mean_v.expand_as(out), atol=atol, rtol=rtol):
+                raise AssertionError("fully masked rows are not the mean of v")
+        del out, plain, diff, qf, kf, vf
+        big = Sq * Skv >= 2**22
+        k_ms = median_ms(lambda: flash_attention(q, k, v, **kw), reps=10 if big else 30)
+        p_ms = median_ms(lambda: attention_ref(q, k, v, **kw), reps=3 if big else 10)
+        sdpa_ms = None
+        if window is None and cap is None:  # SDPA computes the same function
+            sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=10 if big else 30)
+        b_ms, b_by, flops = attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
+        results.append(dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
+                            causal=causal, window=window, softcap=cap,
+                            dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+                            atol=atol, rtol=rtol, ms=k_ms, plain_ms=p_ms, sdpa_ms=sdpa_ms,
+                            bound_ms=b_ms, bound_by=b_by, tflops=flops / k_ms / 1e9))
+        sdpa = f"{sdpa_ms:.4f} ms" if sdpa_ms is not None else "n/a (window/softcap)"
+        log(f"[flash] {name:>22s} {str(dtype)[6:]:>8s} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
+            f"D{D}: max err {err:.3g} (atol {atol}, rtol {rtol}); kernel {k_ms:.4f} ms "
+            f"({flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, SDPA {sdpa}, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    main = results[0]
+    row = dict(name="flash_attention", route="cuda", source=KERNELS["flash_attention"][3],
+               replaces=KERNELS["flash_attention"][1], launches=0,
+               max_abs_err=max(r["max_abs_err"] for r in results), ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=main["sdpa_ms"])
+    return row, results, leak
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: Qwen3-4B serving at full width; phase 5: card against CPU
+# ---------------------------------------------------------------------------
+
+
+def cache_from_prefill(model, kvs, batch, max_seq, length):
+    """A decode cache holding the prefill's KV stack ({pattern index:
+    (n_groups, B, Hkv, S, Dh)}): layer li is group li // G, index li % G."""
+    cache = model.init_kv_cache(batch, max_seq)
+    G = model.cfg.group_size
+    for li, layer in enumerate(cache["layers"]):
+        for n in ("k", "v"):
+            layer[n][:, :, :length] = kvs[str(li % G)][n][li // G]
+        layer["pos"] = length
+    return cache
+
+
+def profile_lm(what, fn, wall_ms=None):
+    """`fn()` under torch.profiler: device time split into the flash kernel,
+    GEMMs (cuBLAS/CUTLASS kernels) and the rest, the top device ops, and
+    the busy share of an unprofiled wall when one is given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    split = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        if KERNELS["flash_attention"][2] in name:
+            split["flash_attention"] += us / 1e3
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            split["gemm"] += us / 1e3
+        else:
+            split["other"] += us / 1e3
+    total = sum(split.values())
+    calls = sum(c for _, c in by_name.values())
+    busy = f", busy share {total / wall_ms:.4f} of an unprofiled wall of {wall_ms:.1f} ms" \
+        if wall_ms else ""
+    log(f"[lm] {what}: device time {total:.1f} ms over {calls} device ops{busy}: flash "
+        f"kernel {split['flash_attention']:.1f} ms ({split['flash_attention'] / total:.3f}), "
+        f"GEMMs {split['gemm']:.1f} ms ({split['gemm'] / total:.3f}), other "
+        f"{split['other']:.1f} ms ({split['other'] / total:.3f}); top device ops:")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, c) in top:
+        log(f"[lm]   {us / 1e3:10.3f} ms  {c:6d} calls  {name[:100]}")
+    return dict(device_ms=total, device_ops=calls, wall_ms=wall_ms,
+                **{f"{k}_ms": v for k, v in split.items()},
+                top=[dict(name=n[:100], ms=us / 1e3, calls=c) for n, (us, c) in top])
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def lm_serving(device):
+    """Phase 4: Qwen3-4B (36 layers, d_model 2560, vocab 151,936, bf16) with
+    random weights from a seeded generator on the card. The main path: 4
+    prompts of 4,096 tokens through `prefill_forward`, the KV stack copied
+    into a decode cache, 64 greedy `serve_step`s; launch counts read around
+    prefill and decode. Then a teacher-forced check and a profiled prefill."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.param import param_bytes, param_count
+    from repro_torch.models.transformer import Transformer, lm_param_specs
+
+    cfg = qwen3_4b.model_cfg()
+    t = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    torch.cuda.synchronize()
+    specs = lm_param_specs(cfg)
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{param_count(specs)} parameters, {param_bytes(specs) / 1e9:.2f} GB in bf16, "
+        f"drawn on the card in {time.perf_counter() - t:.1f} s")
+    B, S = LM_BATCH, LM_PROMPT
+    tokens = torch.from_numpy(token_batch(0, B, S, cfg.vocab)["tokens"]).to(device)
+
+    # the main path, counts from 0
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last, kvs = model.prefill_forward(tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = dict(LAUNCHES)
+    cache = cache_from_prefill(model, kvs, B, LM_MAX_SEQ, S)
+    del kvs
+    finite = torch.isfinite(last).all()
+    tok = last.argmax(-1, keepdim=True)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(LM_DECODE)]
+    for start, end in events:
+        start.record()
+        logits, cache = model.serve_step(cache, tok)
+        end.record()
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_prefill = prefill_launches.get("flash_attention", 0)
+    if n_prefill != cfg.n_layers or sum(prefill_launches.values()) != n_prefill:
+        raise AssertionError(f"prefill launches {prefill_launches}, expected "
+                             f"{cfg.n_layers} flash_attention")
+    if launches != prefill_launches:
+        raise AssertionError(f"decode launched kernels: {launches} after {prefill_launches}")
+    if not bool(finite):
+        raise AssertionError("non-finite logits in prefill or decode")
+    if cache["layers"][0]["pos"] != S + LM_DECODE:
+        raise AssertionError(f"cache at {cache['layers'][0]['pos']}")
+    log(f"[lm] main path: prefill {B} x {S} tokens in {prefill_s:.3f} s "
+        f"({B * S / prefill_s:.0f} tokens/s), flash launches {n_prefill}; {LM_DECODE} greedy "
+        f"decode steps: median {np.median(step_ms):.3f} ms, mean {np.mean(step_ms):.3f} ms "
+        f"per step ({B} sequences), flash launches {launches['flash_attention'] - n_prefill}; "
+        f"peak memory {peak_gb:.2f} GB; all logits finite")
+    del cache, logits
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last, kvs = model.prefill_forward(tokens)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t
+    del kvs
+    # teacher-forced: prefill S-1 tokens (a ragged length), decode the last
+    _, kvs = model.prefill_forward(tokens[:, :-1])
+    cache = cache_from_prefill(model, kvs, B, LM_MAX_SEQ, S - 1)
+    del kvs
+    step, cache = model.serve_step(cache, tokens[:, -1:])
+    rel = rel_l2(step, last)
+    max_err = float((step - last).abs().max())
+    same_top = float((step.argmax(-1) == last.argmax(-1)).float().mean())
+    log(f"[lm] second prefill {prefill2_s:.3f} s ({B * S / prefill2_s:.0f} tokens/s); "
+        f"teacher-forced decode of token {S} vs prefill's last logits: relative L2 error "
+        f"{rel:.4g} (tol {TEACHER_FORCED_REL_TOL}), max abs err {max_err:.4g} over logits "
+        f"of max |{float(last.abs().max()):.3g}|, same argmax in {same_top:.2f} of requests")
+    if not rel <= TEACHER_FORCED_REL_TOL:
+        raise AssertionError(f"teacher-forced decode differs from prefill: {rel}")
+    prof = profile_lm("prefill", lambda: model.prefill_forward(tokens), prefill2_s * 1e3)
+    if prof["flash_attention_ms"] == 0:
+        raise AssertionError("the prefill profile shows no flash_attention_kernel")
+
+    def decode(n=8):  # greedy steps from the teacher-forced cache
+        nonlocal cache, step
+        for _ in range(n):
+            step, cache = model.serve_step(cache, step.argmax(-1, keepdim=True))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    decode_prof = profile_lm("8 decode steps", decode, (time.perf_counter() - t) * 1e3)
+    return dict(model=cfg.name, batch=B, prompt=S, decode_steps=LM_DECODE,
+                prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+                prefill2_s=prefill2_s, prefill2_tokens_per_s=B * S / prefill2_s,
+                decode_ms_median=float(np.median(step_ms)),
+                decode_ms_mean=float(np.mean(step_ms)), peak_memory_gb=peak_gb,
+                flash_launches_prefill=n_prefill,
+                flash_launches_decode=launches["flash_attention"] - n_prefill,
+                teacher_forced_rel_l2=rel, teacher_forced_max_abs=max_err,
+                profile=prof, decode_profile=decode_prof), n_prefill
+
+
+def lm_card_vs_cpu(device):
+    """Phase 5: a 2-layer Qwen3-4B at full width in float32, TF32 off, one
+    prompt of 256 tokens: prefill on the card (through the flash kernel)
+    against the CPU (through the plain version), logits and KV."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(qwen3_4b.model_cfg(), n_layers=2, dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = Transformer(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+        card = Transformer(cfg, params=cpu.tree(), device=device)
+        tokens = torch.from_numpy(token_batch(1, 1, 256, cfg.vocab)["tokens"])
+        before = LAUNCHES["flash_attention"]
+        last_d, kv_d = card.prefill_forward(tokens.to(device))
+        torch.cuda.synchronize()
+        if LAUNCHES["flash_attention"] - before != cfg.n_layers:
+            raise AssertionError("the card's prefill did not run the flash kernel per layer")
+        last_c, kv_c = cpu.prefill_forward(tokens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {"logits": (last_d.cpu(), last_c)}
+    for n in ("k", "v"):
+        errs[n] = (kv_d["0"][n].cpu(), kv_c["0"][n])
+    out = {}
+    for what, (a, b) in errs.items():
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        out[what] = err
+        if not err <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"card vs CPU {what}: max error / max |value| {err}")
+    log(f"[lm-cpu] {cfg.name} x{cfg.n_layers} layers, float32, 256 tokens: card (flash "
+        f"kernel) vs CPU (plain version), max error over max |value|: logits "
+        f"{out['logits']:.3g}, k {out['k']:.3g}, v {out['v']:.3g} (tol {CARD_VS_CPU_TOL})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -338,21 +710,33 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[device] {kind}; {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t = time.perf_counter()
+    t_start = t = time.perf_counter()
     lib_path = build.build()
     build.load_library()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t:.2f} s")
 
+    def phase_done(name):
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     kernels = check_kernels(device)
+    kernels["flash_attention"], flash_shapes, flash_leak = check_flash(device)
+    phase_done("kernel checks")
     launches, cells, profiles = main_path(device)
     for k, v in launches.items():
         kernels[k]["launches"] = v
         rounds = sum(c["rounds"] for c in cells if KERNELS_BY_LAYOUT[c["layout"]] == k)
         log(f"[kernel] {k}: {v} launches on the main path, {v / rounds:.1f} per "
             f"engine round of 4 processors")
+    phase_done("graph serving")
     oversubscribed(device)
+    phase_done("oversubscribed card vs CPU")
+    lm, kernels["flash_attention"]["launches"] = lm_serving(device)
+    phase_done("Qwen3-4B serving")
+    lm["card_vs_cpu"] = lm_card_vs_cpu(device)
+    phase_done("Qwen3-4B card vs CPU")
 
     log(json.dumps({"cells": cells, "profiles": profiles}))
+    log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ port's types on a device. The reverse direction returns numpy arrays, so
 that the two packages' results can be compared as numpy.
 
 Packed visited words are uint32 in the reference and int32 with the same
-bits here: they cross as a bit-for-bit view, never a value cast.
+bits here: they cross as a bit-for-bit view, never a value cast. bfloat16
+arrays (numpy has no bfloat16 of its own) cross the same way, as their
+uint16 bits.
 """
 
 from __future__ import annotations
@@ -23,11 +25,18 @@ from repro_torch.core.landmarks import LandmarkIndex
 from repro_torch.core.router import RouterState
 from repro_torch.core.storage import StorageTier
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.param import tree_map
+from repro_torch.models.transformer import LMConfig, stack_layers, unstack_layers
 
 
 def tensor(x, device: DeviceLike = None) -> torch.Tensor:
-    """Any array-like (numpy, or an array of the reference package) -> tensor."""
-    return torch.from_numpy(np.array(np.asarray(x))).to(resolve_device(device))
+    """Any array-like (numpy, or an array of the reference package) -> tensor;
+    bfloat16 crosses bit for bit, as its uint16 bits."""
+    a = np.array(np.asarray(x))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(resolve_device(device))
+    return torch.from_numpy(a).to(resolve_device(device))
 
 
 def words_to_torch(words, device: DeviceLike = None) -> torch.Tensor:
@@ -42,7 +51,12 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
 
 
 def to_numpy(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    """Tensor -> numpy; a bfloat16 tensor comes back as its uint16 bits
+    (view them as the reference's bfloat16 to compare)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
 
 
 def storage_tier(tier, device: DeviceLike = None) -> StorageTier:
@@ -94,3 +108,29 @@ def fields_to_numpy(obj) -> dict:
     items = obj._asdict().items() if hasattr(obj, "_asdict") else \
         ((f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj))
     return {k: to_numpy(v) if isinstance(v, torch.Tensor) else v for k, v in items}
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and configurations
+# ---------------------------------------------------------------------------
+
+
+def lm_config_from_reference(cfg) -> LMConfig:
+    """The reference's LMConfig -> the port's: the fields the port has, the
+    dtype by name. Training-only fields are dropped."""
+    names = {f.name for f in dataclasses.fields(LMConfig)}
+    kw = {k: getattr(cfg, k) for k in names if k != "dtype"}
+    return LMConfig(**kw, dtype=getattr(torch, np.dtype(cfg.dtype).name))
+
+
+def lm_params_from_reference(params, cfg: LMConfig, device: DeviceLike = None) -> dict:
+    """The reference's LM parameter tree (stacked per pattern index) -> the
+    port's (one tree per layer: layer li is group li // len(pattern) at
+    pattern index li % len(pattern)), for `Transformer(cfg, params)`."""
+    return unstack_layers(tree_map(lambda a: tensor(a, device), params), cfg)
+
+
+def lm_params_to_reference(params: dict, cfg: LMConfig) -> dict:
+    """The port's tree -> the reference's stacked layout as numpy (bfloat16
+    leaves as uint16 bits): the inverse of `lm_params_from_reference`."""
+    return tree_map(to_numpy, stack_layers(params, cfg))

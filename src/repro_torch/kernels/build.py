@@ -2,11 +2,15 @@
 
 The kernels are CUDA C++ with a plain C interface (`csrc/*.cu`). At first
 use, `load_library()` compiles every source in `csrc/` with nvcc for
-`sm_90a` into one shared library under `build/kernels/` at the root of the
-checkout, named by a hash of the sources (so an edited source rebuilds and
-an unchanged one is reused), and loads it with ctypes. Importing this
-module builds nothing and needs no nvcc: the CPU tests import it on
-machines without a CUDA toolkit.
+`sm_90a` (one nvcc per source, all started together) and links them into
+one shared library under `build/kernels/` at the root of the checkout,
+named by a hash of the sources (so an edited source rebuilds and an
+unchanged one is reused), and loads it with ctypes. Importing this module
+builds nothing and needs no nvcc: the CPU tests import it on machines
+without a CUDA toolkit.
+
+`LAUNCHES` counts kernel launches per wrapper name; `launch` is the one
+place that launches, checks the launch's error and counts.
 """
 
 from __future__ import annotations
@@ -18,12 +22,18 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+
+# kernel launches per wrapper; CPU (plain-version) calls do not count
+LAUNCHES: Counter = Counter()
 
 
 def _sources() -> list[Path]:
@@ -48,7 +58,20 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfrontier-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the stderr of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
@@ -57,16 +80,16 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # objects and library under private names, then a rename: concurrent
+    # builders never see a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, _sources())])
+        lib = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -74,9 +97,23 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (first use only) and load the kernels; argtypes declared."""
     lib = ctypes.CDLL(str(build()))
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.frontier_expand_dense.argtypes = [p, p, p, i64, i64, i32, i64, p]
     lib.frontier_expand_dense.restype = i32
     lib.frontier_expand_packed.argtypes = [p, p, p, i64, i64, i32, i64, i64, p]
     lib.frontier_expand_packed.restype = i32
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i64, i64, i64, i64, i64,
+                                        i32, i32, i32, i64, f32, f32, p]
+    lib.flash_attention_fwd.restype = i32
     return lib
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point `fn(*args, stream)` on `device`'s current
+    stream; raise if the launch failed, else count it under `name`."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1

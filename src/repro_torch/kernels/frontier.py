@@ -5,7 +5,7 @@ and the visited sets, mark all valid neighbours visited. The CUDA kernels
 are in `csrc/frontier.cu` (one thread per candidate; see its header for
 the TPU kernels they replace and what bounds them); the wrappers here check
 their inputs, launch them on the current stream and count launches in
-`LAUNCHES`. For tensors on the CPU a wrapper runs the kernel's plain
+`kernels.build.LAUNCHES`. For tensors on the CPU a wrapper runs the kernel's plain
 version (`kernels.ref`) instead and counts nothing; on a CUDA tensor it
 launches the kernel or raises.
 
@@ -28,18 +28,13 @@ and the density predicates of the reference's `auto` backend live here too.
 
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import launch, load_library
 
 WORD_BITS = 32  # packed layout: node id = word * 32 + bit (little-endian)
 DENSE_RATIO = 8
 _MASK32 = 0xFFFFFFFF
-
-# kernel launches per wrapper; CPU (plain-version) calls do not count
-LAUNCHES: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +135,6 @@ def _check(rows: torch.Tensor, deg: torch.Tensor, vis: torch.Tensor,
         raise ValueError(f"unsupported device {vis.device}")
 
 
-def _launch(name: str, fn, vis: torch.Tensor, *args) -> None:
-    with torch.cuda.device(vis.device):
-        stream = torch.cuda.current_stream(vis.device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
-
-
 def frontier_expand_batched(rows: torch.Tensor, deg: torch.Tensor,
                             visited: torch.Tensor) -> torch.Tensor:
     """One BFS hop for a whole query batch, dense layout, in place."""
@@ -159,9 +145,9 @@ def frontier_expand_batched(rows: torch.Tensor, deg: torch.Tensor,
     if rows.numel() == 0:
         return visited
     B, F, W = rows.shape
-    _launch("frontier_expand_batched", load_library().frontier_expand_dense,
-            visited, rows.data_ptr(), deg.data_ptr(), visited.data_ptr(),
-            B, F, W, visited.shape[1])
+    launch("frontier_expand_batched", load_library().frontier_expand_dense,
+           visited.device, rows.data_ptr(), deg.data_ptr(), visited.data_ptr(),
+           B, F, W, visited.shape[1])
     return visited
 
 
@@ -185,7 +171,7 @@ def frontier_expand_packed(rows: torch.Tensor, deg: torch.Tensor,
     if rows.numel() == 0:
         return words
     B, F, W = rows.shape
-    _launch("frontier_expand_packed", load_library().frontier_expand_packed,
-            words, rows.data_ptr(), deg.data_ptr(), words.data_ptr(),
-            B, F, W, n, words.shape[1])
+    launch("frontier_expand_packed", load_library().frontier_expand_packed,
+           words.device, rows.data_ptr(), deg.data_ptr(), words.data_ptr(),
+           B, F, W, n, words.shape[1])
     return words

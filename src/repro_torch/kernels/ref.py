@@ -3,11 +3,17 @@
 Each function computes exactly what its kernel computes, with ordinary
 tensor ops, on any device. A kernel wrapper takes its plain version for
 tensors that lie on the CPU (the tests), and `chip_smoke.py` holds each
-kernel against its plain version on the card. They are also the `scatter`
-expansion backend of `core.visited`.
+kernel against its plain version on the card. The frontier versions are
+also the `scatter` expansion backend of `core.visited`. The attention
+versions are the reference's own, whose products run in the input dtype
+where the kernel's run in float32 (so bf16 compares within 2e-2); they are
+also `kernels.ops.attention`'s path wherever the kernel does not run
+(decode offsets, one-row queries, CPU tensors).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,3 +49,58 @@ def frontier_expand_packed_ref(rows: torch.Tensor, deg: torch.Tensor,
     """The same update on int32-held packed words (bit id%32 of word id//32),
     in place: the hop's delta is scattered densely, packed once, ORed in."""
     return words.bitwise_or_(pack_words(_delta(rows, deg, n)))
+
+
+# ---------------------------------------------------------------------------
+# attention (the reference's kernels/ref.py, the same ops in the same order)
+# ---------------------------------------------------------------------------
+
+MASK_VALUE = -1e30  # finite, as the reference's: fully masked rows average v
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None, scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """GQA attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+    Products in the input dtype, logits and softmax in float32; query i sits
+    at position q_offset + i, key j at j; a row with every key masked gets
+    the mean of v."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq} and {Hkv}")
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    kr = torch.repeat_interleave(k, group, dim=1)
+    vr = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kr).float() * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(
+            logits / torch.full((1,), softcap, dtype=logits.dtype, device=q.device))
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full((), MASK_VALUE, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), vr)
+
+
+def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None, q_offset: int = 0,
+                          chunk: int = 512) -> torch.Tensor:
+    """`attention_ref` one q chunk at a time: the same math, with the
+    (Sq, Skv) logits held for `chunk` rows at once. A ragged Sq takes
+    `attention_ref` whole."""
+    Sq = q.shape[2]
+    if Sq % chunk != 0:
+        return attention_ref(q, k, v, causal, window, softcap, scale, q_offset)
+    return torch.cat([attention_ref(q[:, :, i:i + chunk], k, v, causal, window, softcap,
+                                    scale, q_offset + i)
+                      for i in range(0, Sq, chunk)], dim=2)

@@ -6,7 +6,7 @@
   - entry points asked for no device raise where CUDA is absent, and run
     on the CPU only when `device="cpu"` is passed;
   - a kernel wrapper given CPU tensors runs the plain version and counts
-    no launch.
+    no launch (the attention wrapper's case is in test_torch_flash_attention).
 """
 
 import ast
@@ -21,6 +21,7 @@ import torch
 
 from _torch_parity import t
 from repro_torch.kernels import frontier as fr
+from repro_torch.kernels.build import LAUNCHES
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -55,6 +56,7 @@ def test_no_reference_imports_in_source(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = list(_modules())
     assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
+    assert "repro_torch.models.transformer" in mods and "repro_torch.kernels.ops" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -90,10 +92,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.router import Router, RouterConfig
     from repro_torch.core.storage import build_storage
+    from repro_torch.configs import qwen3_4b
     from repro_torch.graph.csr import to_padded
+    from repro_torch.models.param import init_params
+    from repro_torch.models.transformer import Transformer, lm_param_specs
     from repro_torch.serve.engine import EngineRunConfig, ServingEngine
 
     g, tier, router = _cpu_parts()
+    lm_cfg = qwen3_4b.smoke_cfg()
     cfg = EngineRunConfig(n_processors=2)
     calls = [
         lambda: resolve_device(),
@@ -104,12 +110,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         lambda: build_storage(to_padded(g), n_shards=2),
         lambda: Router(2, RouterConfig(scheme="hash")),
         lambda: build_landmark_index(g, 2, n_landmarks=4),
+        lambda: Transformer(lm_cfg),
+        lambda: init_params(lm_param_specs(lm_cfg)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
     assert ServingEngine(tier, router, cfg, device="cpu").device.type == "cpu"
+    assert Transformer(lm_cfg, device="cpu").device.type == "cpu"
 
 
 def test_wrapper_on_cpu_tensors_runs_plain_version_without_counting():
@@ -117,8 +126,8 @@ def test_wrapper_on_cpu_tensors_runs_plain_version_without_counting():
     rows = t(rng.integers(-1, 40, (2, 3, 4)).astype(np.int32))
     deg = t(rng.integers(0, 5, (2, 3)).astype(np.int32))
     vis = torch.zeros((2, 40), dtype=torch.bool)
-    before = dict(fr.LAUNCHES)
+    before = dict(LAUNCHES)
     out = fr.frontier_expand_batched(rows, deg, vis.clone())
     words = fr.frontier_expand_packed(rows, deg, fr.pack_words(vis), 40)
-    assert dict(fr.LAUNCHES) == before
+    assert dict(LAUNCHES) == before
     assert out.any() and torch.equal(fr.pack_words(out), words)
