@@ -19,7 +19,20 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      logits, and that teacher-forced decode of the last prompt token
      gives the prefill's last logits; profiles one prefill;
   5. runs a 2-layer Qwen3-4B at full width in float32 on the card and on
-     the CPU and holds the prefill's logits and KV against each other.
+     the CPU and holds the prefill's logits and KV against each other;
+  6. aggregates (sum, mean, max, min, std) width-75 messages over
+     synthetic edges at the repo's ogb_products shape (2,449,029 nodes,
+     61,859,140 edges, power-law skewed, 2 % padded): 7 segment_sum launches
+     a call, checked against float64 with a self-checked tolerance,
+     profiled and timed beside index_add_;
+  7. looks up DIN's histories (serve_bulk, serve_p99) in its full item
+     table (1,048,576 x 18) by embedding_bag, sum and mean, weighted and
+     not: one launch a call, checked against float64, timed beside
+     F.embedding_bag;
+  8. holds both on the card against the CPU at a small size.
+
+Phase 1 also holds segment_sum and embedding_bag against their plain
+versions in float64 over case grids (the test grids and edge cases).
 
 Any mismatch raises; there is no fallback to the CPU. The last line is
 {"ok": true, "device": {...}}.
@@ -57,10 +70,15 @@ KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device sy
                                "frontier_packed_kernel", CSRC + "frontier.cu"),
     "flash_attention": ("attention_ref", "src/repro/kernels/flash_attention.py:99",
                         "flash_attention_kernel", CSRC + "flash_attention.cu"),
+    "segment_sum": ("segment_sum_ref", "src/repro/kernels/segment_reduce.py:70",
+                    "segment_sum_kernel", CSRC + "segment_sum.cu"),
+    "embedding_bag": ("embedding_bag_ref", "src/repro/kernels/embedding_bag.py:51",
+                      "embedding_bag_kernel", CSRC + "embedding_bag.cu"),
 }
 KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
 TIMING_FIELDS = ("wall_s", "throughput_qps")
+PROFILE_PAD = 64  # spin kernels ahead of a profiled call (see device_ops)
 
 # flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
 # causal, window, softcap, dtype); the first is the Qwen3-4B prefill shape
@@ -80,6 +98,57 @@ ATTN_SHAPES = [
 # at most 2^-8 relative, the float32 one by sums in another order
 ATTN_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 2e-5)}
 LEAK_KEYS = 64  # the tolerance self-check: a kernel that leaks one key tile
+
+# segment sum against float64: float32 rounding errors of random sign grow
+# like sqrt(L) 2^-24 sum|v| over a segment of L edges, far below 1e-6 sum|v|;
+# an edge dropped or counted twice moves a row by |v| (SEG_GRID: name, E,
+# D, N, ids, dtype; the first five are tests/test_kernels.py's SEG_CASES)
+SEG_REL, SEG_ABS = 1e-6, 1e-6
+SEG_GRID = [
+    ("64x8 N16", 64, 8, 16, "valid", torch.float32),
+    ("128x16 N32", 128, 16, 32, "valid", torch.float32),
+    ("300x8 N10 -1", 300, 8, 10, "invalid", torch.float32),
+    ("512x128 N64 -1", 512, 128, 64, "invalid", torch.float32),
+    ("100x4 N7 -1", 100, 4, 7, "invalid", torch.float32),
+    ("sparse ids", 128, 4, 10_000, "sparse", torch.float32),
+    ("ids >= N", 2000, 16, 50, "wide", torch.float32),
+    ("all -1", 100, 8, 10, "none", torch.float32),
+    ("E 1", 1, 5, 3, "valid", torch.float32),
+    ("D 1", 5000, 1, 100, "invalid", torch.float32),
+    ("D 75 skewed", 200_000, 75, 5000, "skewed", torch.float32),
+    ("D 129", 3000, 129, 200, "wide", torch.float32),
+    ("bf16 D 75", 4000, 75, 300, "invalid", torch.bfloat16),
+]
+# embedding bag against float64: BAG_REL sum_l |w row| per element, as for
+# the segment sum (BAG_GRID: name, B, L, V, D, combine, weighted, dtype,
+# ids drawn below; the first four are tests/test_kernels.py's BAG_CASES)
+BAG_REL = 1e-6
+BAG_GRID = [
+    ("16x4 V64 D8 sum", 16, 4, 64, 8, "sum", False, torch.float32, None),
+    ("64x12 V256 D16 sum w", 64, 12, 256, 16, "sum", True, torch.float32, None),
+    ("32x8 V128 D4 mean w", 32, 8, 128, 4, "mean", True, torch.float32, None),
+    ("130x5 V96 D8 mean", 130, 5, 96, 8, "mean", False, torch.float32, None),
+    ("ids >= V", 50, 6, 40, 18, "mean", True, torch.float32, 60),
+    ("all padding", 20, 7, 30, 18, "mean", False, torch.float32, None),
+    ("B 1", 1, 100, 1000, 18, "sum", True, torch.float32, None),
+    ("D 1", 64, 9, 50, 1, "mean", True, torch.float32, None),
+    ("D 129", 40, 11, 300, 129, "sum", True, torch.float32, None),
+    ("bf16", 200, 100, 5000, 18, "mean", True, torch.bfloat16, None),
+]
+CATCH_SHARE = 0.99  # a tolerance must catch a dropped item in this share of rows
+
+# GNN aggregation (phase 6): configs/base.py ogb_products, configs/pna.py width
+GNN_SHAPE = (2_449_029, 61_859_140, 75)  # nodes, edges, message width
+AGG_KINDS = ("sum", "mean", "max", "min", "std")
+SEG_LAUNCHES_PER_AGGREGATE = 7  # sum 1, mean 2, std 4 (max, min: plain)
+PAD_SHARE = 0.02  # share of edge ids padded with -1
+DIAG_COLS = 15  # columns held in float64 at a time
+# DIN bag lookups (phase 7): configs/din.py item table and serve batches
+DIN_TABLE = (1_048_576, 18)
+DIN_BATCHES = {"serve_bulk": 262_144, "serve_p99": 512}
+# card against CPU (phase 8)
+CPU_GNN_SHAPE = (20_000, 400_000, 75)
+CPU_DIN_BATCH = 4096
 
 # Qwen3-4B serving (phase 4) and the card-vs-CPU check (phase 5)
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_MAX_SEQ = 4, 4096, 64, 4160
@@ -140,6 +209,32 @@ def median_ms(fn, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ops(fn):
+    """{device op name: (us, calls)} of one `fn()` under torch.profiler.
+    The trace can lose its first device events, so PROFILE_PAD short spin
+    kernels go first and are left out of the result; the log says when
+    the trace lost some of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    by_name, pads = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if "spin_kernel" in e.name:
+                pads += 1
+                continue
+            us, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    if pads < PROFILE_PAD:
+        log(f"[profile] the trace kept {pads} of {PROFILE_PAD} leading pad kernels")
+    return by_name
 
 
 def bound_ms(kind, rows, deg, vis) -> float:
@@ -301,19 +396,10 @@ def profile_cell(tier, li, wl, base, scheme, layout, device):
     time (sum of kernel times; one stream, so kernels do not overlap) against
     the wall of an unprofiled run, the kernels that take the most, and the
     frontier kernel's own time per launch on the path's real inputs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = dataclasses.replace(base, visited_layout=layout)
     wall = make_engine(tier, li, scheme, cfg, device).run(wl)[0].wall_s
     eng = make_engine(tier, li, scheme, cfg, device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run(wl)
-    by_name = {}  # device-side events only: kernels and copies
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    by_name = device_ops(lambda: eng.run(wl))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
     log(f"[profile] {scheme}/{layout}: device busy {busy_s:.3f} s of an unprofiled "
@@ -506,17 +592,7 @@ def profile_lm(what, fn, wall_ms=None):
     """`fn()` under torch.profiler: device time split into the flash kernel,
     GEMMs (cuBLAS/CUTLASS kernels) and the rest, the top device ops, and
     the busy share of an unprofiled wall when one is given."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    by_name = device_ops(fn)
     split = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (us, _) in by_name.items():
         low = name.lower()
@@ -697,6 +773,465 @@ def lm_card_vs_cpu(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 1, segment sum and embedding bag: the kernels against their plain
+# versions in float64, with tolerances that check themselves
+# ---------------------------------------------------------------------------
+
+
+def seg_tol(abs_sum: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Per element: SEG_REL * sum_e |v_e| + SEG_ABS (times `scale`)."""
+    return scale * (SEG_REL * abs_sum + SEG_ABS)
+
+
+def seg_inputs(E, D, N, ids, dtype, device, seed):
+    """Standard normal values and ids: "valid" in [0, N), "invalid" with
+    20 % -1 (the test grid's draws), "wide" in [-1, N + 5), "sparse" N
+    apart at most E distinct, "none" all -1, "skewed" a power law."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((E, D)).astype(np.float32)
+    if ids == "sparse":
+        seg = rng.choice(N, size=E)
+    elif ids == "wide":
+        seg = rng.integers(-1, N + 5, E)
+    elif ids == "none":
+        seg = np.full(E, -1)
+    elif ids == "skewed":
+        seg = (rng.random(E) ** 2 * N).astype(np.int64)
+    else:
+        seg = rng.integers(0, N, E)
+        if ids == "invalid":
+            seg[rng.random(E) < 0.2] = -1
+    return (torch.from_numpy(vals).to(device=device, dtype=dtype),
+            torch.from_numpy(seg.astype(np.int32)).to(device))
+
+
+def check_segment_grid(device):
+    """Both segment-sum wrappers (ids in any order; ids sorted, dropped -1
+    first) against `segment_sum_ref` on float64 copies of the values at
+    every SEG_GRID case, within `seg_tol`."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import segment_sum, segment_sum_sorted
+
+    max_err, used = 0.0, 0.0
+    for i, (what, E, D, N, ids, dtype) in enumerate(SEG_GRID):
+        vals, seg = seg_inputs(E, D, N, ids, dtype, device, seed=i)
+        keys, order = torch.sort(seg, stable=True)
+        outs = {"segment_sum": segment_sum(vals, seg, N),
+                "segment_sum_sorted": segment_sum_sorted(vals[order].contiguous(), keys, N)}
+        torch.cuda.synchronize()
+        v64 = vals.double()
+        plain = ref.segment_sum_ref(v64, seg, N)
+        tol = seg_tol(ref.segment_sum_ref(v64.abs(), seg, N))
+        for name, out in outs.items():
+            if out.dtype != torch.float32 or out.shape != (N, D):
+                raise AssertionError(f"{name} at {what}: {out.dtype} {tuple(out.shape)}")
+            diff = (out.double() - plain).abs()
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"{name} != segment_sum_ref at {what}: max err "
+                                     f"{float(diff.max())}")
+            if diff.numel():
+                max_err = max(max_err, float(diff.max()))
+                used = max(used, float((diff / tol).max()))
+    log(f"[kernel] segment_sum: both wrappers on {len(SEG_GRID)} cases (the test grid, "
+        f"sparse ids, ids >= N, all -1, E 1, D 1 / 75 / 129, bf16) within {SEG_REL} "
+        f"sum|v| + {SEG_ABS} of the float64 plain version: max err {max_err:.3g}, "
+        f"{used:.4f} of the tolerance")
+    return max_err
+
+
+def bag_check(out, table, idx, w, combine, scale=1.0):
+    """|out - plain| against BAG_REL * sum_l |w row| (over the count for a
+    mean), plus 2^-8 |plain| for a bf16 output (its rounding); plain and
+    the sums of magnitudes on float64 copies. Returns (max err, share of
+    the tolerance used, plain, tol)."""
+    from repro_torch.kernels import ref
+
+    t64 = table.double()
+    w64 = None if w is None else w.double()
+    plain = ref.embedding_bag_ref(t64, idx, w64, combine)
+    mags = ref.embedding_bag_ref(t64.abs(), idx, None if w is None else w64.abs(), combine)
+    tol = scale * BAG_REL * mags
+    if out.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * plain.abs()
+    diff = (out.double() - plain).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"embedding_bag != embedding_bag_ref: max err {float(diff.max())}")
+    used = float((diff / tol.clamp(min=1e-300)).max()) if diff.numel() else 0.0
+    return (float(diff.max()) if diff.numel() else 0.0), used, plain, tol
+
+
+def check_bag_grid(device):
+    """The bag kernel against `embedding_bag_ref` on float64 copies at every
+    BAG_GRID case (the test grid's draws, 25 % padding)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+
+    max_err, used = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (what, B, L, V, D, combine, weighted, dtype, hi) in enumerate(BAG_GRID):
+        rng = np.random.default_rng(100 + i)
+        table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
+        idx = rng.integers(0, hi if hi else V, (B, L))
+        idx[rng.random((B, L)) < (1.0 if what == "all padding" else 0.25)] = -1
+        w = torch.from_numpy(rng.random((B, L)).astype(np.float32)).to(device) \
+            if weighted else None
+        table = table.to(device=device, dtype=dtype)
+        idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+        out = embedding_bag(table, idx, w, combine)
+        torch.cuda.synchronize()
+        if out.dtype != dtype or out.shape != (B, D):
+            raise AssertionError(f"embedding_bag at {what}: {out.dtype} {tuple(out.shape)}")
+        err, u, _, _ = bag_check(out, table, idx, w, combine)
+        max_err, used[dtype] = max(max_err, err), max(used[dtype], u)
+    log(f"[kernel] embedding_bag: {len(BAG_GRID)} cases (the test grid, ids >= V clamped, "
+        f"all padding, B 1, D 1 / 129, bf16) within {BAG_REL} sum|w row| (+ 2^-8 |plain| "
+        f"in bf16) of the float64 plain version: max err {max_err:.3g}; share of the "
+        f"tolerance used {used[torch.float32]:.4f} in float32, {used[torch.bfloat16]:.4f} "
+        f"in bf16 (whose output rounding alone may use all of it)")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: GNN aggregation at the repo's ogb_products shape
+# ---------------------------------------------------------------------------
+
+
+def synthetic_edges(N, E, g, device):
+    """Destination ids of E synthetic edges over N nodes: floor(N u^2) for
+    uniform u (a power law: node k draws about E / (2 sqrt(N k)) edges, so
+    the hub holds about E / sqrt(N)), relabelled by a random permutation,
+    with PAD_SHARE of the ids set to -1 as a sampler pads."""
+    u = torch.rand(E, generator=g, device=device)
+    dst = (u.square_() * N).long().clamp_(max=N - 1)
+    del u
+    dst = torch.randperm(N, generator=g, device=device)[dst].int()
+    dst[torch.rand(E, generator=g, device=device) < PAD_SHARE] = -1
+    return dst
+
+
+def agg_expect(v64, dst, N, scale=1.0):
+    """Float64 sum, mean, max, min and std of `aggregate` with their
+    tolerances: sum within seg_tol; mean within seg_tol / count; max and
+    min exact; std checked as |sd_k - sd_p| (sd_k + sd_p) = |var_k -
+    var_p| <= tol_var, where tol_var carries the means' errors into m2 -
+    m1^2, plus 2^-20 (m2 + m1^2 + 1e-6) for its float32 rounding. The
+    squares are of one sign, so the rounding errors of their float32 sum
+    over L edges add up like 2^-24 sqrt(L) sum v^2 (not below 1e-6 of it
+    for a hub): m2's tolerance adds 2^-22 sqrt(L) sum v^2 / L."""
+    from repro_torch.kernels import ref
+
+    s = ref.segment_sum_ref(v64, dst, N)
+    mx = ref.segment_max_ref(v64, dst, N)
+    mn = -ref.segment_max_ref(-v64, dst, N)
+    a = ref.segment_sum_ref(v64.abs(), dst, N)
+    q = ref.segment_sum_ref(v64.square(), dst, N)
+    c = ref.segment_sum_ref(torch.ones_like(v64[:, :1]), dst, N).clamp_(min=1)
+    tol_s = seg_tol(a, scale)
+    m1, tol_m1 = s / c, tol_s / c
+    m2, tol_m2 = q / c, (seg_tol(q, scale) + scale * 2.0 ** -22 * c.sqrt() * q) / c
+    var = (m2 - m1 * m1).clamp(min=0)
+    tol_var = tol_m2 + (2 * m1.abs() + tol_m1) * tol_m1 + 2.0 ** -20 * (m2 + m1 * m1 + 1e-6)
+    return {"sum": (s, tol_s), "mean": (m1, tol_m1), "max": (mx, None), "min": (mn, None),
+            "std": ((var + 1e-6).sqrt(), tol_var)}
+
+
+def agg_errors(outs, expect, cols=slice(None)):
+    """{kind: (max err, share of its tolerance used)}; raises on a miss."""
+    errs = {}
+    for kind, out in zip(AGG_KINDS, outs):
+        got = out[:, cols].double()
+        want, tol = expect[kind]
+        diff = (got - want).abs()
+        if tol is None:
+            ok, used = bool((diff == 0).all()), 0.0
+        elif kind == "std":
+            lhs = diff * (got + want)
+            ok, used = bool((lhs <= tol).all()), float((lhs / tol).max())
+        else:
+            ok, used = bool((diff <= tol).all()), float((diff / tol).max())
+        if not ok:
+            raise AssertionError(f"aggregate {kind}: max err {float(diff.max())}")
+        errs[kind] = (float(diff.max()), used)
+    return errs
+
+
+def gnn_aggregation(device):
+    """Phase 6: `aggregate(messages, dst, N, AGG_KINDS)` over synthetic
+    edges at the repo's ogb_products shape (configs/base.py: 2,449,029
+    nodes, 61,859,140 edges) with PNA's message width 75 (configs/pna.py),
+    standard normal float32 messages made on the card from a seed. The
+    main path is that one call: SEG_LAUNCHES_PER_AGGREGATE segment_sum
+    launches. Then a profile of a call, the kernel's own time, the
+    wrapper's, the plain version's and index_add_'s beside the bound, and
+    the result against the float64 plain version, column block by block,
+    with the tolerance's self-check (each segment's last edge dropped)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.segment_reduce import _launch_csr, segment_order, segment_sum
+    from repro_torch.models.gnn.message_passing import aggregate
+
+    N, E, D = GNN_SHAPE
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(0)
+    t = time.perf_counter()
+    dst = synthetic_edges(N, E, g, device)
+    msgs = torch.randn((E, D), generator=g, device=device)
+    torch.cuda.synchronize()
+    order, offsets = segment_order(dst, N)
+    lengths = offsets.diff()
+    kept, max_len = int(offsets[-1]), int(lengths.max())
+    log(f"[gnn] synthetic edges at the repo's ogb_products shape: {N} nodes, {E} edges "
+        f"({kept} kept, {E - kept} padded with -1), largest segment {max_len} edges, "
+        f"{int((lengths == 0).sum())} empty; messages ({E}, {D}) float32, "
+        f"{msgs.numel() * 4 / 1e9:.2f} GB; made and sorted on the card in "
+        f"{time.perf_counter() - t:.3f} s")
+    if max_len < 10_000:
+        raise AssertionError(f"largest segment {max_len} < 10^4: not the skew asked for")
+
+    # the main path, counts from 0
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = aggregate(msgs, dst, N, kinds=AGG_KINDS)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"segment_sum": SEG_LAUNCHES_PER_AGGREGATE}:
+        raise AssertionError(f"aggregate launched {launches}, expected "
+                             f"{SEG_LAUNCHES_PER_AGGREGATE} segment_sum")
+    for out in outs:
+        if out.shape != (N, D) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"aggregate output {tuple(out.shape)} not finite")
+    t = time.perf_counter()
+    aggregate(msgs, dst, N, kinds=AGG_KINDS)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+
+    by_name = device_ops(lambda: aggregate(msgs, dst, N, kinds=AGG_KINDS))
+    split = {"segment_sum kernel": 0.0, "sort + offsets": 0.0, "max/min scatter_reduce": 0.0,
+             "other": 0.0}
+    traced = 0
+    for name, (us, calls) in by_name.items():
+        low = name.lower()
+        if KERNELS["segment_sum"][2] in name:
+            split["segment_sum kernel"] += us / 1e3
+            traced += calls
+        elif "sort" in low:
+            split["sort + offsets"] += us / 1e3
+        elif "scatter" in low:
+            split["max/min scatter_reduce"] += us / 1e3
+        else:
+            split["other"] += us / 1e3
+    total = sum(split.values())
+    log(f"[gnn] profiled aggregate: device time {total:.1f} ms over "
+        f"{sum(c for _, c in by_name.values())} device ops ({traced} of "
+        f"{SEG_LAUNCHES_PER_AGGREGATE} segment_sum launches in the trace), busy share "
+        f"{total / warm_ms:.4f} of the unprofiled warm {warm_ms:.1f} ms: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / total:.3f})" for k, v in split.items()))
+    for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[gnn]   {us / 1e3:10.3f} ms  {c:4d} calls  {name[:100]}")
+
+    # one launch alone, at width 75 and at width 1 (the count of a mean)
+    ones = torch.ones((E, 1), device=device)
+    k_ms = median_ms(lambda: _launch_csr(msgs, order, offsets, N), reps=10)
+    k1_ms = median_ms(lambda: _launch_csr(ones, order, offsets, N), reps=10)
+    w_ms = median_ms(lambda: segment_sum(msgs, dst, N), reps=10)
+    p_ms = median_ms(lambda: ref.segment_sum_ref(msgs, dst, N), reps=5)
+    keep = (dst >= 0) & (dst < N)
+    ids, vals = dst[keep].long(), msgs[keep]
+    lib_ms = median_ms(lambda: torch.zeros((N, D), device=device).index_add_(0, ids, vals), reps=5)
+    del ids, vals, keep
+    torch.cuda.empty_cache()
+    # the kernel must read each kept row and its order entry once, the
+    # offsets once, and write the output once; the function reads all ids
+    b_ms = (kept * (D * 4 + 8) + (N + 1) * 8 + N * D * 4) / HBM_BYTES_PER_S * 1e3
+    b1_ms = (kept * (4 + 8) + (N + 1) * 8 + N * 4) / HBM_BYTES_PER_S * 1e3
+    fb_ms = (kept * D * 4 + E * 4 + N * D * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"[gnn] segment_sum at width {D}: kernel alone {k_ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"(bytes / 3.35 TB/s); wrapper (sort + offsets + kernel) {w_ms:.3f} ms, bound of "
+        f"the function {fb_ms:.3f} ms; plain {p_ms:.3f} ms; index_add_ over the kept edges "
+        f"{lib_ms:.3f} ms; at width 1 (count): kernel {k1_ms:.3f} ms, bound {b1_ms:.3f} ms")
+
+    # against float64, DIAG_COLS columns at a time; the self-check drops
+    # each non-empty segment's last edge from the plain version
+    nonempty = lengths > 0
+    last = order[offsets[1:][nonempty] - 1]
+    dst_drop = dst.clone()
+    dst_drop[last] = -1
+    caught = torch.zeros(N, dtype=torch.bool, device=device)
+    errs = {}
+    for c0 in range(0, D, DIAG_COLS):
+        cols = slice(c0, min(D, c0 + DIAG_COLS))
+        v64 = msgs[:, cols].double()
+        expect = agg_expect(v64, dst, N)
+        for kind, (err, used) in agg_errors(outs, expect, cols).items():
+            e0, u0 = errs.get(kind, (0.0, 0.0))
+            errs[kind] = (max(e0, err), max(u0, used))
+        s, tol = expect["sum"]
+        wrong = ref.segment_sum_ref(v64, dst_drop, N)
+        caught |= ((wrong - s).abs() > tol).any(dim=1)
+        del v64, expect, wrong, s, tol
+    share = float(caught[nonempty].float().mean())
+    log(f"[gnn] aggregate vs float64 plain: " + ", ".join(
+        f"{k} max err {e:.3g} ({u:.4f} of its tolerance)" for k, (e, u) in errs.items())
+        + f"; the plain version with each segment's last edge dropped exceeds the sum's "
+        f"tolerance on {share:.6f} of {int(nonempty.sum())} non-empty segments")
+    if share < CATCH_SHARE:
+        raise AssertionError(f"the segment tolerance catches only {share} of dropped edges")
+    log(f"[gnn] main path: aggregate({', '.join(AGG_KINDS)}) first call {first_ms:.1f} ms, "
+        f"warm {warm_ms:.1f} ms, {launches['segment_sum']} segment_sum launches, peak memory "
+        f"{peak_gb:.2f} GB")
+    row = dict(name="segment_sum", route="cuda", source=KERNELS["segment_sum"][3],
+               replaces=KERNELS["segment_sum"][1], launches=launches["segment_sum"],
+               max_abs_err=errs["sum"][0], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by="bytes", library_ms=lib_ms, wrapper_ms=w_ms)
+    info = dict(nodes=N, edges=E, width=D, kept=kept, max_segment=max_len,
+                first_ms=first_ms, warm_ms=warm_ms, peak_memory_gb=peak_gb,
+                launches=launches["segment_sum"], profile_ms=split,
+                profile_launches=traced, kernel_ms=k_ms,
+                kernel_bound_ms=b_ms, count_kernel_ms=k1_ms, count_bound_ms=b1_ms,
+                wrapper_ms=w_ms, function_bound_ms=fb_ms, plain_ms=p_ms, index_add_ms=lib_ms,
+                errors={k: dict(max_abs_err=e, share_of_tol=u) for k, (e, u) in errs.items()},
+                drop_edge_share=share)
+    del msgs, outs, dst, dst_drop, order, offsets, ones
+    torch.cuda.empty_cache()
+    return row, info
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: bag lookups over DIN's full item table
+# ---------------------------------------------------------------------------
+
+
+def din_lookups(device):
+    """Phase 7: `ops.embedding_bag` over DIN's item table (configs/din.py:
+    1,048,576 x 18 float32, std 0.01 as din.param_specs draws it) with
+    `din_batch` histories (L = 100, ragged -1 tails) at serve_bulk and
+    serve_p99, sum and mean, unweighted and weighted: one launch a call
+    (the main path), the result against float64 with the tolerance's
+    self-check (each bag's last valid item dropped), kernel, plain,
+    F.embedding_bag and bound times."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.recsys import din_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.embedding_bag import embedding_bag
+
+    V, D = DIN_TABLE
+    g = torch.Generator(device=device).manual_seed(1)
+    table = torch.randn((V, D), generator=g, device=device).mul_(0.01)
+    lib_table = torch.cat([table, table.new_zeros((1, D))])  # row V: padding
+    results, launches = [], 0
+    for step, (shape, B) in enumerate(DIN_BATCHES.items()):
+        idx = torch.from_numpy(din_batch(step, B)["hist_items"]).to(device)
+        ok = idx >= 0
+        n_valid = int(ok.sum())
+        lib_idx = torch.where(ok, idx, V)
+        last = torch.where(ok, torch.arange(idx.shape[1], device=device), -1).argmax(1)
+        idx_drop = idx.clone()
+        idx_drop[torch.arange(B, device=device), last] = -1
+        nonempty = ok.any(1)
+        distinct = torch.unique(idx[ok]).numel()
+        w_all = torch.rand(idx.shape, generator=g, device=device)
+        for combine in ("sum", "mean"):
+            for weighted in (False, True):
+                w = w_all if weighted else None
+                LAUNCHES.clear()  # the main path: one call, counts from 0
+                out = ops.embedding_bag(table, idx, w, combine)
+                torch.cuda.synchronize()
+                counted = dict(LAUNCHES)
+                if counted != {"embedding_bag": 1}:
+                    raise AssertionError(f"{shape} {combine}: launches {counted}")
+                launches += 1
+                err, used, plain, tol = bag_check(out, table, idx, w, combine)
+                wrong = ref.embedding_bag_ref(table.double(), idx_drop,
+                                              None if w is None else w.double(), combine)
+                share = float(((wrong - plain).abs() > tol).any(1)[nonempty].float().mean())
+                if share < CATCH_SHARE:
+                    raise AssertionError(f"{shape} {combine}: the bag tolerance catches only "
+                                         f"{share} of dropped items")
+                del wrong, plain, tol
+                reps = 30 if B < 10_000 else 10
+                k_ms = median_ms(lambda: embedding_bag(table, idx, w, combine), reps=reps)
+                p_ms = median_ms(lambda: ref.embedding_bag_ref(table, idx, w, combine),
+                                 reps=reps)
+                lib_ms = lib_err = None
+                if not (weighted and combine == "mean"):  # no library call computes it
+                    lib = lambda: F.embedding_bag(lib_idx, lib_table, mode=combine,
+                                                  padding_idx=V, per_sample_weights=w)
+                    lib_err, _, _, _ = bag_check(lib(), table, idx, w, combine)
+                    lib_ms = median_ms(lib, reps=reps)
+                wbytes = 4 * B * idx.shape[1] if weighted else 0
+                io = 4 * B * idx.shape[1] + wbytes + 4 * B * D
+                b_ms = (io + distinct * D * 4) / HBM_BYTES_PER_S * 1e3
+                gb_ms = (io + n_valid * D * 4) / HBM_BYTES_PER_S * 1e3
+                lib_txt = (f"{lib_ms:.4f} ms (its max err {lib_err:.3g})" if lib_ms is not None
+                           else "n/a (no weighted mean)")
+                log(f"[din] {shape} ({B} x {idx.shape[1]}, {n_valid} lookups, {distinct} "
+                    f"distinct rows) {combine}{' weighted' if weighted else ''}: 1 launch, max "
+                    f"err {err:.3g} ({used:.4f} of the tolerance), dropping each bag's last "
+                    f"item exceeds it on {share:.6f} of bags; kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms, F.embedding_bag {lib_txt}, bound {b_ms:.4f} ms "
+                    f"(distinct rows; {gb_ms:.4f} ms if each lookup read its row)")
+                results.append(dict(shape=shape, batch=B, combine=combine, weighted=weighted,
+                                    lookups=n_valid, distinct_rows=distinct, launches=1,
+                                    max_abs_err=err, share_of_tol=used, drop_item_share=share,
+                                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                    library_max_abs_err=lib_err, bound_ms=b_ms,
+                                    gathered_bound_ms=gb_ms))
+    main = results[0]
+    row = dict(name="embedding_bag", route="cuda", source=KERNELS["embedding_bag"][3],
+               replaces=KERNELS["embedding_bag"][1], launches=launches,
+               max_abs_err=max(r["max_abs_err"] for r in results), ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
+               library_ms=main["library_ms"])
+    return row, results
+
+
+def gnn_din_card_vs_cpu(device):
+    """`aggregate` and `ops.embedding_bag` on the card (the kernels) against
+    the CPU (the plain versions) at sizes the CPU runs in seconds. Each side
+    is within the float64 tolerance of the exact result, so they are held
+    within twice it."""
+    from repro_torch.data.recsys import din_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn.message_passing import aggregate
+
+    N, E, D = CPU_GNN_SHAPE
+    rng = np.random.default_rng(5)
+    dst = (rng.random(E) ** 2 * N).astype(np.int64)
+    dst[rng.random(E) < PAD_SHARE] = -1
+    dst = torch.from_numpy(dst.astype(np.int32))
+    msgs = torch.from_numpy(rng.standard_normal((E, D)).astype(np.float32))
+    card = [o.cpu() for o in aggregate(msgs.to(device), dst.to(device), N, kinds=AGG_KINDS)]
+    cpu = aggregate(msgs, dst, N, kinds=AGG_KINDS, use_kernel=False)
+    expect = agg_expect(msgs.double(), dst, N, scale=2.0)
+    for kind, c in zip(AGG_KINDS, cpu):  # hold the card to the CPU's result
+        expect[kind] = (c.double(), expect[kind][1])
+    errs = agg_errors(card, expect)
+    V, Dt = DIN_TABLE
+    table = torch.from_numpy((0.01 * rng.standard_normal((V, Dt))).astype(np.float32))
+    idx = torch.from_numpy(din_batch(9, CPU_DIN_BATCH)["hist_items"])
+    w = torch.from_numpy(rng.random(idx.shape).astype(np.float32))
+    bag = {}
+    for combine in ("sum", "mean"):
+        on_card = ops.embedding_bag(table.to(device), idx.to(device), w.to(device), combine).cpu()
+        on_cpu = ops.embedding_bag(table, idx, w, combine)
+        _, _, _, tol = bag_check(on_cpu, table, idx, w, combine, scale=2.0)
+        diff = (on_card.double() - on_cpu.double()).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"embedding_bag {combine}: card vs CPU {float(diff.max())}")
+        bag[combine] = float(diff.max())
+    log(f"[cpu] aggregate on {N} nodes, {E} synthetic edges, width {D}, card (kernel) vs "
+        f"CPU (plain), within twice the float64 tolerances: " + ", ".join(
+            f"{k} {e:.3g}" for k, (e, _) in errs.items())
+        + f"; embedding_bag over DIN's table, {CPU_DIN_BATCH} weighted bags: sum "
+        f"{bag['sum']:.3g}, mean {bag['mean']:.3g}")
+    return dict(aggregate={k: e for k, (e, _) in errs.items()}, embedding_bag=bag)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -720,6 +1255,8 @@ def main() -> int:
 
     kernels = check_kernels(device)
     kernels["flash_attention"], flash_shapes, flash_leak = check_flash(device)
+    seg_err = check_segment_grid(device)
+    bag_err = check_bag_grid(device)
     phase_done("kernel checks")
     launches, cells, profiles = main_path(device)
     for k, v in launches.items():
@@ -734,9 +1271,19 @@ def main() -> int:
     phase_done("Qwen3-4B serving")
     lm["card_vs_cpu"] = lm_card_vs_cpu(device)
     phase_done("Qwen3-4B card vs CPU")
+    kernels["segment_sum"], gnn = gnn_aggregation(device)
+    kernels["segment_sum"]["max_abs_err"] = max(kernels["segment_sum"]["max_abs_err"], seg_err)
+    phase_done("GNN aggregation")
+    kernels["embedding_bag"], din = din_lookups(device)
+    kernels["embedding_bag"]["max_abs_err"] = max(kernels["embedding_bag"]["max_abs_err"],
+                                                  bag_err)
+    phase_done("DIN bag lookups")
+    cpu = gnn_din_card_vs_cpu(device)
+    phase_done("GNN and DIN card vs CPU")
 
     log(json.dumps({"cells": cells, "profiles": profiles}))
     log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
+    log(json.dumps({"gnn": gnn, "din": din, "card_vs_cpu": cpu}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

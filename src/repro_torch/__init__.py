@@ -11,9 +11,9 @@ counterpart under the same name:
                           build/loader and plain PyTorch versions
   repro_torch.serve    -- the end-to-end ServingEngine
   repro_torch.models   -- the dense LM (prefill and decode), its layers
-                          and parameter specs
+                          and parameter specs; GNN message passing
   repro_torch.configs  -- LM configurations (qwen3-4b, qwen2.5-14b, gemma2-27b)
-  repro_torch.data     -- synthetic token batches
+  repro_torch.data     -- synthetic token and DIN click-log batches
   repro_torch.convert  -- state carried across from / back to `repro`
 
 It imports neither `jax` nor anything of `repro`. Entry points run on CUDA

@@ -105,6 +105,10 @@ def load_library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i64, i64, i64, i64, i64,
                                         i32, i32, i32, i64, f32, f32, p]
     lib.flash_attention_fwd.restype = i32
+    lib.segment_sum.argtypes = [p, p, p, p, i32, i64, i32, p]
+    lib.segment_sum.restype = i32
+    lib.embedding_bag.argtypes = [p, p, p, p, i32, i64, i64, i32, i32, i32, p]
+    lib.embedding_bag.restype = i32
     return lib
 
 

@@ -3,6 +3,9 @@
 
 The reference picks its Pallas kernel on a TPU and the jnp version
 elsewhere; here the kernel runs where the tensors lie on a CUDA device.
+The reference's `use_pallas` is `use_kernel` here, with the same default:
+"auto" or True take the kernel wrapper (the kernel for CUDA tensors, its
+plain version for CPU tensors), False the plain version on any device.
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.embedding_bag import embedding_bag as _bag_kernel
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.segment_reduce import segment_sum as _segsum_kernel
 
 CHUNK_ABOVE = 2048 * 2048  # Sq * Skv above which the plain path goes by q chunks
 
@@ -34,3 +39,51 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
                                          softcap=softcap, scale=scale, q_offset=q_offset)
     return ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                              scale=scale, q_offset=q_offset)
+
+
+def _pick(use_kernel) -> bool:
+    if use_kernel not in ("auto", True, False):
+        raise ValueError(f"use_kernel must be 'auto', True or False, got {use_kernel!r}")
+    return use_kernel is not False
+
+
+def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                use_kernel="auto") -> torch.Tensor:
+    """(num_segments, D) float32 sums of values' rows by segment id; ids
+    outside [0, num_segments) are dropped (`kernels.segment_reduce`)."""
+    if _pick(use_kernel):
+        return _segsum_kernel(values.contiguous(), seg_ids.contiguous(), num_segments)
+    return ref.segment_sum_ref(values, seg_ids, num_segments)
+
+
+def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                 use_kernel="auto") -> torch.Tensor:
+    """`segment_sum` over max(count, 1), the count being the segment sum of
+    a column of ones (two `segment_sum` calls, as the reference)."""
+    s = segment_sum(values, seg_ids, num_segments, use_kernel)
+    ones = torch.ones((values.shape[0], 1), dtype=values.dtype, device=values.device)
+    cnt = segment_sum(ones, seg_ids, num_segments, use_kernel)
+    return s / cnt.clamp_(min=1)
+
+
+def segment_max(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                **_) -> torch.Tensor:
+    """Per-segment max, empty segments 0; plain on every device (the
+    reference keeps max and min off its kernel)."""
+    return ref.segment_max_ref(values, seg_ids, num_segments)
+
+
+def segment_min(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                **_) -> torch.Tensor:
+    return -ref.segment_max_ref(-values, seg_ids, num_segments)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None, combine: str = "sum",
+                  use_kernel="auto") -> torch.Tensor:
+    """(B, D) weighted sum or mean of each bag's table rows, ids < 0 as
+    padding (`kernels.embedding_bag`); weights go in as float32."""
+    if _pick(use_kernel):
+        w = None if weights is None else weights.to(torch.float32).contiguous()
+        return _bag_kernel(table.contiguous(), indices.contiguous(), w, combine)
+    return ref.embedding_bag_ref(table, indices, weights, combine)

@@ -8,7 +8,9 @@ also the `scatter` expansion backend of `core.visited`. The attention
 versions are the reference's own, whose products run in the input dtype
 where the kernel's run in float32 (so bf16 compares within 2e-2); they are
 also `kernels.ops.attention`'s path wherever the kernel does not run
-(decode offsets, one-row queries, CPU tensors).
+(decode offsets, one-row queries, CPU tensors). The segment and bag
+versions sum in float32 (float64 for float64 inputs, which is how
+`chip_smoke.py` gets its exact references), as their kernels do.
 """
 
 from __future__ import annotations
@@ -104,3 +106,68 @@ def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([attention_ref(q[:, :, i:i + chunk], k, v, causal, window, softcap,
                                     scale, q_offset + i)
                       for i in range(0, Sq, chunk)], dim=2)
+
+
+# ---------------------------------------------------------------------------
+# segment reduce (GNN message aggregation)
+# ---------------------------------------------------------------------------
+
+
+def segment_slots(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 segment ids with every id outside [0, num_segments) sent to a
+    dump row at num_segments (dropped once the row is cut off)."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    return torch.where(ok, seg_ids.long(), num_segments)
+
+
+def segment_sum_ref(values: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """values (E, D), seg_ids (E,) -> (num_segments, D): out[s] = sum of the
+    rows e with seg_ids[e] == s. Ids < 0 and >= num_segments are dropped and
+    empty segments are 0. The sums and the result are float32 for float32
+    and bfloat16 values (the Pallas kernel's out_dtype), float64 for float64."""
+    acc = torch.promote_types(values.dtype, torch.float32)
+    out = torch.zeros((num_segments + 1, values.shape[1]), dtype=acc, device=values.device)
+    return out.index_add_(0, segment_slots(seg_ids, num_segments), values.to(acc))[:num_segments]
+
+
+def segment_max_ref(values: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Per-segment maximum in values' dtype; dropped ids as in
+    `segment_sum_ref`, and empty segments are 0 (not -inf)."""
+    idx = segment_slots(seg_ids, num_segments)[:, None].expand_as(values)  # a view, no copy
+    out = values.new_zeros((num_segments + 1, values.shape[1]))
+    return out.scatter_reduce_(0, idx, values, "amax", include_self=False)[:num_segments]
+
+
+def segment_mean_ref(values: torch.Tensor, seg_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """`segment_sum_ref` divided by max(count, 1), tensor by tensor."""
+    s = segment_sum_ref(values, seg_ids, num_segments)
+    ones = torch.ones((values.shape[0], 1), dtype=s.dtype, device=values.device)
+    return s / segment_sum_ref(ones, seg_ids, num_segments).clamp_(min=1)
+
+
+# ---------------------------------------------------------------------------
+# embedding bag (recsys lookup / storage-tier row fetch)
+# ---------------------------------------------------------------------------
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None,
+                      combine: str = "sum") -> torch.Tensor:
+    """table (V, D), indices (B, L) with ids < 0 as padding, weights (B, L)
+    or None (ones) -> (B, D) in table's dtype: out[b] = sum over valid l of
+    w[b, l] * table[idx[b, l]]; "mean" divides by max(#valid, 1). Ids >= V
+    read the last row (the reference's gather clamps). Sums and the
+    division in float32 (float64 for a float64 table)."""
+    if combine not in ("sum", "mean"):
+        raise ValueError(f"combine must be 'sum' or 'mean', got {combine!r}")
+    acc = torch.promote_types(table.dtype, torch.float32)
+    ok = indices >= 0
+    rows = table[indices.long().clamp(0, table.shape[0] - 1)].to(acc)  # (B, L, D)
+    w = ok.to(acc) if weights is None else torch.where(ok, weights.to(acc), 0)
+    out = (w[..., None] * rows).sum(1)
+    if combine == "mean":
+        out = out / ok.sum(-1, keepdim=True).to(acc).clamp_(min=1)
+    return out.to(table.dtype)

@@ -1,2 +1,3 @@
 """Models of the port: the dense decoder-only LM (`transformer`), its
-parameter specs (`param`) and shared layers (`layers`)."""
+parameter specs (`param`) and shared layers (`layers`), and the GNN
+message-passing primitives (`gnn.message_passing`)."""

@@ -6,7 +6,8 @@
   - entry points asked for no device raise where CUDA is absent, and run
     on the CPU only when `device="cpu"` is passed;
   - a kernel wrapper given CPU tensors runs the plain version and counts
-    no launch (the attention wrapper's case is in test_torch_flash_attention).
+    no launch (the attention wrapper's case is in test_torch_flash_attention);
+  - `use_kernel=False` never reaches a kernel wrapper.
 """
 
 import ast
@@ -21,6 +22,9 @@ import torch
 
 from _torch_parity import t
 from repro_torch.kernels import frontier as fr
+from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.segment_reduce import segment_sum, segment_sum_sorted
 from repro_torch.kernels.build import LAUNCHES
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -129,5 +133,37 @@ def test_wrapper_on_cpu_tensors_runs_plain_version_without_counting():
     before = dict(LAUNCHES)
     out = fr.frontier_expand_batched(rows, deg, vis.clone())
     words = fr.frontier_expand_packed(rows, deg, fr.pack_words(vis), 40)
+    vals = t(rng.standard_normal((10, 3)).astype(np.float32))
+    seg = t(rng.integers(-1, 5, 10).astype(np.int32))
+    sums = segment_sum(vals, seg, 5)
+    sorted_sums = segment_sum_sorted(vals, seg.sort().values, 5)
+    bags = embedding_bag(vals, seg.view(2, 5), combine="mean")
     assert dict(LAUNCHES) == before
     assert out.any() and torch.equal(fr.pack_words(out), words)
+    assert sums.any() and sorted_sums.any() and bags.any()
+
+
+def test_use_kernel_false_never_reaches_a_wrapper(monkeypatch):
+    """With use_kernel=False, `ops` and `aggregate` take the plain version
+    on any device: the kernel wrappers they import are not called."""
+    from repro_torch.models.gnn.message_passing import aggregate
+
+    def refuse(*_, **__):
+        raise AssertionError("a kernel wrapper was called with use_kernel=False")
+
+    monkeypatch.setattr(ops, "_segsum_kernel", refuse)
+    monkeypatch.setattr(ops, "_bag_kernel", refuse)
+    rng = np.random.default_rng(1)
+    vals = t(rng.standard_normal((12, 4)).astype(np.float32))
+    seg = t(rng.integers(-1, 6, 12).astype(np.int32))
+    before = dict(LAUNCHES)
+    ops.segment_sum(vals, seg, 6, use_kernel=False)
+    ops.segment_mean(vals, seg, 6, use_kernel=False)
+    ops.embedding_bag(vals, seg.view(3, 4), vals[:, 0].reshape(3, 4).contiguous(),
+                      use_kernel=False)
+    aggregate(vals, seg, 6, kinds=("sum", "mean", "max", "min", "std"), use_kernel=False)
+    assert dict(LAUNCHES) == before
+    with pytest.raises(AssertionError, match="use_kernel=False"):
+        ops.segment_sum(vals, seg, 6)  # "auto" does reach the wrapper
+    with pytest.raises(ValueError, match="use_kernel"):
+        ops.segment_sum(vals, seg, 6, use_kernel="pallas")

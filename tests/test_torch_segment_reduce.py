@@ -1,0 +1,254 @@
+"""The port's segment reductions (`repro_torch.kernels.segment_reduce`,
+`kernels.ops`, `models.gnn.message_passing`) against the reference's, on
+identical numpy inputs, on the CPU (where the wrappers run their plain
+versions).
+
+The reference's Pallas `segment_sum` does not run under jax 0.9.0 (it
+calls `pl.load`, which that version lacks), so the port is held against
+`repro.kernels.ref.segment_sum_ref` and `repro.kernels.ops.*(use_pallas=
+False)`, the reference's own plain path. Sums are float32 in both, in
+another order, hence the 1e-5 tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+from _hypothesis_compat import given, settings, strategies as st
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.gnn import message_passing as jmp
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.segment_reduce import segment_sum, segment_sum_sorted
+from repro_torch.models.gnn import message_passing as tmp
+from test_kernels import SEG_CASES
+
+TOL = 1e-5
+KINDS = ("sum", "mean", "max", "min", "std")
+
+
+def _inputs(E, D, N, with_invalid, seed):
+    """The draws of `test_kernels.test_segment_sum_vs_ref`."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((E, D)).astype(np.float32)
+    seg = rng.integers(0, N, E)
+    if with_invalid:
+        seg[rng.random(E) < 0.2] = -1
+    return vals, seg.astype(np.int32)
+
+
+def _sorted(vals, seg):
+    order = np.argsort(seg, kind="stable")
+    return vals[order], seg[order]
+
+
+def _close(port, expect, tol=TOL):
+    assert port.dtype == torch.float32
+    np.testing.assert_allclose(port.numpy(), np.asarray(expect, np.float32), atol=tol, rtol=tol)
+
+
+def _all_sums(vals, seg, N):
+    """Every way the port computes a segment sum, on the same inputs."""
+    tv, ts = torch.from_numpy(vals), torch.from_numpy(seg)
+    sv, ss = _sorted(vals, seg)
+    return {
+        "segment_sum": segment_sum(tv, ts, N),
+        "segment_sum int64 ids": segment_sum(tv, ts.long(), N),
+        "segment_sum_sorted": segment_sum_sorted(torch.from_numpy(sv), torch.from_numpy(ss), N),
+        "ops auto": ops.segment_sum(tv, ts, N),
+        "ops use_kernel=False": ops.segment_sum(tv, ts, N, use_kernel=False),
+        "plain": ref.segment_sum_ref(tv, ts, N),
+    }
+
+
+@pytest.mark.parametrize("E,D,N,with_invalid", SEG_CASES)
+def test_segment_sum_vs_reference(E, D, N, with_invalid):
+    vals, seg = _inputs(E, D, N, with_invalid, E + D)
+    expect = np.asarray(jref.segment_sum_ref(jnp.asarray(vals), jnp.asarray(seg), N))
+    np.testing.assert_array_equal(
+        expect, np.asarray(jops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), N,
+                                            use_pallas=False)))
+    for what, out in _all_sums(vals, seg, N).items():
+        assert out.shape == (N, D), what
+        _close(out, expect)
+
+
+@pytest.mark.parametrize("E,D,N,with_invalid", SEG_CASES)
+def test_segment_mean_max_min_vs_reference(E, D, N, with_invalid):
+    vals, seg = _inputs(E, D, N, with_invalid, E * D)
+    jv, js, tv, ts = jnp.asarray(vals), jnp.asarray(seg), torch.from_numpy(vals), torch.from_numpy(seg)
+    expect = np.asarray(jref.segment_mean_ref(jv, js, N))
+    np.testing.assert_allclose(np.asarray(jops.segment_mean(jv, js, N, use_pallas=False)),
+                               expect, atol=TOL, rtol=TOL)
+    for use_kernel in ("auto", True, False):
+        _close(ops.segment_mean(tv, ts, N, use_kernel=use_kernel), expect)
+    _close(ref.segment_mean_ref(tv, ts, N), expect)
+    for name in ("segment_max", "segment_min"):
+        out = getattr(ops, name)(tv, ts, N)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(getattr(jops, name)(jv, js, N)))
+
+
+EDGE_CASES = {  # name -> (E, D, N, ids)
+    "ids >= N dropped": (6, 3, 4, [0, 3, 4, -1, 7, 3]),
+    "all -1": (5, 2, 3, [-1] * 5),
+    "E = 1": (1, 4, 3, [2]),
+    "D = 1": (40, 1, 6, None),
+    "D = 129": (50, 129, 9, None),
+    "sparse ids": (128, 4, 10_000, "sparse"),
+    "E = 0": (0, 3, 4, []),
+}
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_segment_sum_edge_cases(name):
+    E, D, N, ids = EDGE_CASES[name]
+    rng = np.random.default_rng(len(name))
+    vals = rng.standard_normal((E, D)).astype(np.float32)
+    if ids is None:
+        ids = rng.integers(-1, N + 2, E)
+    elif ids == "sparse":
+        ids = rng.choice(N, size=E)
+    seg = np.asarray(ids, np.int64).astype(np.int32)
+    expect = np.asarray(jref.segment_sum_ref(jnp.asarray(vals), jnp.asarray(seg), N))
+    for what, out in _all_sums(vals, seg, N).items():
+        assert out.shape == (N, D), what
+        _close(out, expect)
+    mean = np.asarray(jops.segment_mean(jnp.asarray(vals), jnp.asarray(seg), N, use_pallas=False))
+    _close(ops.segment_mean(torch.from_numpy(vals), torch.from_numpy(seg), N), mean)
+
+
+def test_dropped_ids_and_empty_segments():
+    """Ids [0, 3, 4, -1] with N = 4 count rows [1, 0, 0, 1]."""
+    ones = torch.ones((4, 1))
+    out = segment_sum(ones, torch.tensor([0, 3, 4, -1], dtype=torch.int32), 4)
+    assert out[:, 0].tolist() == [1.0, 0.0, 0.0, 1.0]
+
+
+def test_bf16_values_sum_in_float32():
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal((200, 16)).astype(np.float32)
+    seg = rng.integers(-1, 12, 200).astype(np.int32)
+    bf = torch.from_numpy(vals).to(torch.bfloat16)
+    expect = np.asarray(jref.segment_sum_ref(jnp.asarray(bf.float().numpy()), jnp.asarray(seg), 12))
+    for out in (segment_sum(bf, torch.from_numpy(seg), 12),
+                ops.segment_sum(bf, torch.from_numpy(seg), 12, use_kernel=False)):
+        _close(out, expect)
+    assert ops.segment_mean(bf, torch.from_numpy(seg), 12).dtype == torch.float32
+
+
+def test_sorted_entry_point_takes_leading_minus_one_and_rejects_unsorted():
+    vals = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    seg = torch.tensor([-1, -1, 0, 0, 2, 5], dtype=torch.int32)  # 5 >= N: dropped
+    out = segment_sum_sorted(vals, seg, 3)
+    assert out.tolist() == [[4.0 + 6.0, 5.0 + 7.0], [0.0, 0.0], [8.0, 9.0]]
+    with pytest.raises(ValueError, match="sorted"):
+        segment_sum_sorted(vals, seg.flip(0), 3)
+
+
+def test_float64_plain_version_sums_in_float64():
+    vals = torch.tensor([[1.0], [1e-10]], dtype=torch.float64)
+    ids = torch.zeros(2, dtype=torch.int32)
+    out = ref.segment_sum_ref(vals, ids, 1)
+    assert out.dtype == torch.float64 and out.item() == 1.0 + 1e-10
+    assert ref.segment_sum_ref(vals.float(), ids, 1).item() == 1.0  # float32 loses it
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(st.integers(0, 60), st.integers(1, 6), st.integers(1, 20), st.integers(0, 10**6))
+def test_segment_sum_matches_a_loop(E, D, N, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((E, D)).astype(np.float32)
+    seg = rng.integers(-2, N + 2, E).astype(np.int32)
+    expect = np.zeros((N, D))
+    for e in range(E):
+        if 0 <= seg[e] < N:
+            expect[seg[e]] += vals[e]
+    for what, out in _all_sums(vals, seg, N).items():
+        _close(out, expect)
+
+
+@pytest.mark.parametrize("bad", ["values 1-D", "float64 values", "float ids", "length",
+                                 "negative N", "strided"])
+def test_wrapper_input_checks(bad):
+    vals, seg, N = torch.zeros((4, 3)), torch.zeros(4, dtype=torch.int32), 2
+    err = ValueError
+    if bad == "values 1-D":
+        vals = vals[:, 0]
+    elif bad == "float64 values":
+        vals, err = vals.double(), TypeError
+    elif bad == "float ids":
+        seg, err = seg.float(), TypeError
+    elif bad == "length":
+        seg = seg[:3]
+    elif bad == "negative N":
+        N = -1
+    else:
+        vals = torch.zeros((3, 4)).t()
+    for fn in (segment_sum, segment_sum_sorted):
+        with pytest.raises(err):
+            fn(vals, seg, N)
+
+
+# ---------------------------------------------------------------------------
+# message passing
+# ---------------------------------------------------------------------------
+
+
+def _graph(E=400, D=6, N=37, seed=0):
+    rng = np.random.default_rng(seed)
+    msgs = rng.standard_normal((E, D)).astype(np.float32)
+    dst = rng.integers(0, N, E)
+    dst[rng.random(E) < 0.1] = -1
+    return msgs, dst.astype(np.int32), N
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("use_kernel", ["auto", False])
+def test_aggregate_vs_reference(kind, use_kernel):
+    msgs, dst, N = _graph()
+    expect = jmp.aggregate(jnp.asarray(msgs), jnp.asarray(dst), N, kinds=(kind,),
+                           use_pallas=False)[0]
+    (out,) = tmp.aggregate(torch.from_numpy(msgs), torch.from_numpy(dst), N, kinds=(kind,),
+                           use_kernel=use_kernel)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), atol=TOL, rtol=TOL)
+
+
+def test_aggregate_all_kinds_at_once_and_unknown_kind():
+    msgs, dst, N = _graph(seed=1)
+    expect = jmp.aggregate(jnp.asarray(msgs), jnp.asarray(dst), N, kinds=KINDS, use_pallas=False)
+    out = tmp.aggregate(torch.from_numpy(msgs), torch.from_numpy(dst), N, kinds=KINDS)
+    assert len(out) == len(KINDS)
+    for a, b in zip(out, expect):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError):
+        tmp.aggregate(torch.from_numpy(msgs), torch.from_numpy(dst), N, kinds=("median",))
+
+
+def test_degree_vs_reference():
+    _, dst, N = _graph(seed=2)
+    dst[:5] = N + 3  # ids >= n are not counted
+    expect = np.asarray(jmp.degree(jnp.asarray(dst), N))
+    out = tmp.degree(torch.from_numpy(dst), N)
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), expect)
+
+
+@pytest.mark.parametrize("with_out_of_range", [False, True])
+def test_segment_softmax_vs_reference(with_out_of_range):
+    rng = np.random.default_rng(4)
+    _, dst, N = _graph(seed=3)
+    if with_out_of_range:
+        dst[:7] = N + 1
+    scores = (3 * rng.standard_normal((dst.shape[0], 4))).astype(np.float32)
+    expect = np.asarray(jmp.segment_softmax(jnp.asarray(scores), jnp.asarray(dst), N))
+    out = tmp.segment_softmax(torch.from_numpy(scores), torch.from_numpy(dst), N)
+    np.testing.assert_allclose(out.numpy(), expect, atol=TOL, rtol=TOL)
+
+
+def test_cpu_aggregate_counts_no_launch():
+    msgs, dst, N = _graph(seed=5)
+    before = dict(LAUNCHES)
+    tmp.aggregate(torch.from_numpy(msgs), torch.from_numpy(dst), N, kinds=KINDS)
+    assert dict(LAUNCHES) == before
