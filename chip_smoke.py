@@ -7,7 +7,9 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
   1. holds each kernel against its plain PyTorch version on the card
      (the frontier kernels at the serving shapes, the flash-attention
      kernel at the Qwen3-4B prefill shape, a Gemma2-like local layer and
-     small, ragged and fully masked cases), with times and bounds;
+     small, ragged and fully masked cases in both dtypes, each shape
+     profiled to show its route: bf16 on the tensor cores, float32 on
+     the CUDA cores), with times and bounds;
   2. serves the 262,144-node power-law preset end to end through
      `ServingEngine` (hash and landmark routing, dense and packed visited
      sets), checks the launch counts and the results, and profiles it;
@@ -29,7 +31,8 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      table (1,048,576 x 18) by embedding_bag, sum and mean, weighted and
      not: one launch a call, checked against float64, timed beside
      F.embedding_bag;
-  8. holds both on the card against the CPU at a small size.
+  8. holds both on the card against the CPU at a small size, and shows
+     that float16 computes on the CPU and raises on the card.
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases).
@@ -79,10 +82,12 @@ KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
 TIMING_FIELDS = ("wall_s", "throughput_qps")
 PROFILE_PAD = 64  # spin kernels ahead of a profiled call (see device_ops)
+PROFILE_TRIES = 3  # profiles of one call while the trace lacks the kernel sought
 
 # flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
 # causal, window, softcap, dtype); the first is the Qwen3-4B prefill shape
-# of one request, whose numbers go into the kernel line
+# of one request, whose numbers go into the kernel line; D 77 takes the bf16
+# kernel's element-wise fill (D % 8 != 0), every other bf16 shape cp.async
 ATTN_SHAPES = [
     ("qwen3-4b prefill", 1, 32, 8, 4096, 4096, 128, True, None, None, torch.bfloat16),
     ("gemma2-like local", 1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, torch.bfloat16),
@@ -92,7 +97,16 @@ ATTN_SHAPES = [
     ("ragged, window+softcap", 2, 4, 2, 77, 77, 32, True, 30, 20.0, torch.float32),
     ("ragged Sq != Skv", 1, 4, 2, 100, 300, 16, False, None, None, torch.float32),
     ("fully masked rows", 1, 4, 2, 128, 128, 64, True, 0, None, torch.float32),
+    ("ragged, window+softcap", 2, 4, 2, 77, 77, 32, True, 30, 20.0, torch.bfloat16),
+    ("ragged Sq != Skv", 1, 4, 2, 100, 300, 16, False, None, None, torch.bfloat16),
+    ("fully masked rows", 1, 4, 2, 128, 128, 64, True, 0, None, torch.bfloat16),
+    ("D 80", 1, 8, 2, 1000, 1000, 80, True, None, None, torch.bfloat16),
+    ("D 77, window+softcap", 1, 4, 2, 200, 333, 77, True, 50, 30.0, torch.bfloat16),
 ]
+# the kernel each dtype must take: bf16 the tensor cores, float32 the CUDA cores
+FLASH_ROUTES = {torch.bfloat16: ("tensor cores", "flash_attention_kernel_tc<"),
+                torch.float32: ("CUDA cores", "flash_attention_kernel<")}
+ROUTE_LAUNCHES = 3  # profiled flash launches a shape for the route check
 # (atol, rtol) of the kernel against the plain version on float32 copies of
 # its inputs, which is what the kernel computes: the bf16 output rounds by
 # at most 2^-8 relative, the float32 one by sums in another order
@@ -211,14 +225,26 @@ def median_ms(fn, reps: int = 30) -> float:
     return float(np.median(times))
 
 
-def device_ops(fn):
+def device_ops(fn, want=None):
     """{device op name: (us, calls)} of one `fn()` under torch.profiler.
     The trace can lose its first device events, so PROFILE_PAD short spin
     kernels go first and are left out of the result; the log says when
-    the trace lost some of them."""
+    the trace lost some of them. Inside a long run it has also lost every
+    event of a profile, so when `want` is given and no op name holds it,
+    `fn()` is profiled again, up to PROFILE_TRIES times in all."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        by_name = _device_ops(fn)
+        if want is None or any(want in name for name in by_name):
+            break
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no {want}")
+    return by_name
+
+
+def _device_ops(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()  # nothing queued before the trace starts
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_PAD):
             torch.cuda._sleep(1000)
@@ -481,13 +507,16 @@ def attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
 
 def check_flash(device):
     """The flash kernel against `attention_ref` on float32 copies of its
-    inputs (the kernel casts to float32 as the TPU kernel does) at every
+    inputs (the TPU kernel casts to float32; the bf16 route's products are
+    exact in float32 and its P @ V carries 16 bits of P) at every
     ATTN_SHAPES entry: |kernel - plain| <= atol + rtol * |plain|, plus the
-    mean of v for fully masked rows. At the first shape, a plain version
-    that leaks the key tile above the diagonal must fail that tolerance on
-    the second half of the rows, where a typical output is small. Kernel,
-    plain and SDPA times (median of CUDA events) beside the bound. TF32 is
-    off while it runs, so that float32 products are float32."""
+    mean of v for fully masked rows, and the route (the kernel a profile of
+    one launch shows) that the dtype must take. At the first shape, a plain
+    version that leaks the key tile above the diagonal must fail that
+    tolerance on the second half of the rows, where a typical output is
+    small. Kernel, plain and SDPA times (median of CUDA events) beside the
+    bound. TF32 is off while it runs, so that float32 products are
+    float32."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -517,7 +546,8 @@ def _check_flash(device):
         atol, rtol = ATTN_TOL[dtype]
         diff = (out - plain).abs()
         err = float(diff.max())
-        if not bool((diff <= atol + rtol * plain.abs()).all()):
+        tol_used = float((diff / (atol + rtol * plain.abs())).max())
+        if not tol_used <= 1:
             raise AssertionError(f"flash_attention != attention_ref at {name}: max err {err}")
         if leak is None and causal and window is None:
             # query i sees keys up to i + LEAK_KEYS: the error of a kernel
@@ -542,6 +572,17 @@ def _check_flash(device):
             if not torch.allclose(out, mean_v.expand_as(out), atol=atol, rtol=rtol):
                 raise AssertionError("fully masked rows are not the mean of v")
         del out, plain, diff, qf, kf, vf
+        # the trace may drop events: of ROUTE_LAUNCHES, at least one flash
+        # event must show, and every one must be the dtype's kernel
+        route, symbol = FLASH_ROUTES[dtype]
+        seen = device_ops(lambda: [flash_attention(q, k, v, **kw) for _ in range(ROUTE_LAUNCHES)],
+                          want=KERNELS["flash_attention"][2])
+        ran = {n: c for n, (_, c) in seen.items() if KERNELS["flash_attention"][2] in n}
+        if not ran or any(symbol not in n for n in ran):
+            raise AssertionError(f"{name} ({dtype}) ran {list(ran)}, not the {route} kernel")
+        if sum(ran.values()) < ROUTE_LAUNCHES:
+            log(f"[flash] {name}: the trace kept {sum(ran.values())} of {ROUTE_LAUNCHES} "
+                f"flash launches")
         big = Sq * Skv >= 2**22
         k_ms = median_ms(lambda: flash_attention(q, k, v, **kw), reps=10 if big else 30)
         p_ms = median_ms(lambda: attention_ref(q, k, v, **kw), reps=3 if big else 10)
@@ -552,14 +593,16 @@ def _check_flash(device):
         b_ms, b_by, flops = attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
         results.append(dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
                             causal=causal, window=window, softcap=cap,
-                            dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+                            dtype=str(dtype).removeprefix("torch."), route=route,
+                            kernel=next(iter(ran))[:100], max_abs_err=err, tol_used=tol_used,
                             atol=atol, rtol=rtol, ms=k_ms, plain_ms=p_ms, sdpa_ms=sdpa_ms,
                             bound_ms=b_ms, bound_by=b_by, tflops=flops / k_ms / 1e9))
         sdpa = f"{sdpa_ms:.4f} ms" if sdpa_ms is not None else "n/a (window/softcap)"
         log(f"[flash] {name:>22s} {str(dtype)[6:]:>8s} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
-            f"D{D}: max err {err:.3g} (atol {atol}, rtol {rtol}); kernel {k_ms:.4f} ms "
-            f"({flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, SDPA {sdpa}, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"D{D} on the {route}: max err {err:.3g} (atol {atol}, rtol {rtol}; "
+            f"{tol_used:.3f} of the tolerance); kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, SDPA "
+            f"{sdpa}, bound {b_ms:.4f} ms ({b_by})")
         del q, k, v
         torch.cuda.empty_cache()
     main = results[0]
@@ -588,11 +631,12 @@ def cache_from_prefill(model, kvs, batch, max_seq, length):
     return cache
 
 
-def profile_lm(what, fn, wall_ms=None):
+def profile_lm(what, fn, wall_ms=None, want=None):
     """`fn()` under torch.profiler: device time split into the flash kernel,
     GEMMs (cuBLAS/CUTLASS kernels) and the rest, the top device ops, and
-    the busy share of an unprofiled wall when one is given."""
-    by_name = device_ops(fn)
+    the busy share of an unprofiled wall when one is given; `want` as in
+    device_ops."""
+    by_name = device_ops(fn, want)
     split = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (us, _) in by_name.items():
         low = name.lower()
@@ -709,7 +753,8 @@ def lm_serving(device):
         f"of max |{float(last.abs().max()):.3g}|, same argmax in {same_top:.2f} of requests")
     if not rel <= TEACHER_FORCED_REL_TOL:
         raise AssertionError(f"teacher-forced decode differs from prefill: {rel}")
-    prof = profile_lm("prefill", lambda: model.prefill_forward(tokens), prefill2_s * 1e3)
+    prof = profile_lm("prefill", lambda: model.prefill_forward(tokens), prefill2_s * 1e3,
+                      want=KERNELS["flash_attention"][2])
     if prof["flash_attention_ms"] == 0:
         raise AssertionError("the prefill profile shows no flash_attention_kernel")
 
@@ -1008,7 +1053,8 @@ def gnn_aggregation(device):
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t) * 1e3
 
-    by_name = device_ops(lambda: aggregate(msgs, dst, N, kinds=AGG_KINDS))
+    by_name = device_ops(lambda: aggregate(msgs, dst, N, kinds=AGG_KINDS),
+                         want=KERNELS["segment_sum"][2])
     split = {"segment_sum kernel": 0.0, "sort + offsets": 0.0, "max/min scatter_reduce": 0.0,
              "other": 0.0}
     traced = 0
@@ -1224,11 +1270,23 @@ def gnn_din_card_vs_cpu(device):
         if not bool((diff <= tol).all()):
             raise AssertionError(f"embedding_bag {combine}: card vs CPU {float(diff.max())}")
         bag[combine] = float(diff.max())
+    # float16: the plain version computes on the CPU, the card has no
+    # float16 kernel and raises
+    h16, i16, t16, b16 = msgs[:64].half(), dst[:64], table[:64].half(), idx[:4].clamp(max=63)
+    ops.segment_sum(h16, i16, N), ops.embedding_bag(t16, b16)
+    for what, fn in (("segment_sum", lambda: ops.segment_sum(h16.to(device), i16.to(device), N)),
+                     ("embedding_bag", lambda: ops.embedding_bag(t16.to(device), b16.to(device)))):
+        try:
+            fn()
+        except TypeError:
+            continue
+        raise AssertionError(f"{what} took float16 CUDA tensors")
     log(f"[cpu] aggregate on {N} nodes, {E} synthetic edges, width {D}, card (kernel) vs "
         f"CPU (plain), within twice the float64 tolerances: " + ", ".join(
             f"{k} {e:.3g}" for k, (e, _) in errs.items())
         + f"; embedding_bag over DIN's table, {CPU_DIN_BATCH} weighted bags: sum "
-        f"{bag['sum']:.3g}, mean {bag['mean']:.3g}")
+        f"{bag['sum']:.3g}, mean {bag['mean']:.3g}; float16 computes on the CPU and "
+        f"raises TypeError on the card")
     return dict(aggregate={k: e for k, (e, _) in errs.items()}, embedding_bag=bag)
 
 

@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Counter = Counter()
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -51,10 +51,10 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(csrc: Path = CSRC) -> Path:
+    """Where the library for the sources in `csrc` lives (built or not)."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -74,9 +74,10 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them already exists."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources in `csrc` (by default the port's) unless a
+    library for them already exists."""
+    out = library_path(csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -84,9 +85,9 @@ def build() -> Path:
     # objects and library under private names, then a rename: concurrent
     # builders never see a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources(csrc)]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for obj, src in zip(objs, _sources())])
+                  for obj, src in zip(objs, _sources(csrc))])
         lib = str(Path(tmp) / "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)
@@ -94,9 +95,10 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (first use only) and load the kernels; argtypes declared."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build (first use only) and load the kernels; argtypes declared.
+    `flash_compare.py` passes another `csrc` to load an older kernel."""
+    lib = ctypes.CDLL(str(build(csrc)))
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.frontier_expand_dense.argtypes = [p, p, p, i64, i64, i32, i64, p]
     lib.frontier_expand_dense.restype = i32

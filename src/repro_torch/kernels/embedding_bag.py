@@ -7,8 +7,10 @@ and counts launches in `kernels.build.LAUNCHES`. For tensors on the CPU it
 runs the kernel's plain version (`kernels.ref.embedding_bag_ref`) instead
 and counts nothing; on a CUDA tensor it launches the kernel or raises.
 
-table (V, D) float32 or bfloat16, V >= 1; indices (B, L) int32, ids < 0
-are padding; weights (B, L) float32 or None (ones); all contiguous.
+table (V, D) float32 or bfloat16 (on CPU tensors float16 too: the plain
+version takes it, as the reference's jnp path does), V >= 1; indices
+(B, L) int32, ids < 0 are padding; weights (B, L) float32 or None (ones);
+all contiguous.
 Output (B, D) in the table's dtype: out[b] = sum over valid l of
 w[b, l] * table[idx[b, l]], divided by max(#valid, 1) for "mean"; ids >= V
 read the last row (the reference's gather clamps). Sums and the division
@@ -22,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import launch, load_library
-from repro_torch.kernels.ref import embedding_bag_ref
+from repro_torch.kernels.ref import PLAIN_DTYPES, embedding_bag_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # csrc kThreads
@@ -33,8 +35,9 @@ def _check(table: torch.Tensor, indices: torch.Tensor, weights: Optional[torch.T
     if table.dim() != 2 or table.shape[0] < 1 or indices.dim() != 2:
         raise ValueError(f"shapes table {tuple(table.shape)}, indices "
                          f"{tuple(indices.shape)}: want (V >= 1, D) and (B, L)")
-    if table.dtype not in _DTYPES:
-        raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
+    if table.dtype not in (_DTYPES if table.is_cuda else PLAIN_DTYPES):
+        raise TypeError(f"table must be float32 or bfloat16 (or float16 on the CPU), "
+                        f"got {table.dtype} on {table.device}")
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if combine not in ("sum", "mean"):

@@ -1,11 +1,14 @@
 """Flash attention forward on Hopper: the prefill attention of the LM.
 
-The CUDA kernel is in `csrc/flash_attention.cu` (see its header for the
-TPU kernel it replaces, its design and what bounds it). The wrapper here
-checks its inputs, launches it on the current stream and counts launches
-in `kernels.build.LAUNCHES`. For tensors on the CPU it runs the kernel's plain version
-(`kernels.ref.attention_ref`) instead and counts nothing; on a CUDA tensor
-it launches the kernel or raises.
+The CUDA kernels are in `csrc/flash_attention.cu` (see its header for the
+TPU kernel they replace, their design and what bounds them). The route is
+chosen by dtype alone: bfloat16 runs on the tensor cores (bf16 MMAs, P @ V
+in two bf16 halves of P), float32 on the CUDA cores (float32 FMAs). The
+wrapper here checks its inputs, launches the kernel on the current stream
+and counts launches in `kernels.build.LAUNCHES`. For tensors on the CPU it
+runs the kernels' plain version (`kernels.ref.attention_ref`) instead and
+counts nothing; on a CUDA tensor it launches the kernel of its dtype or
+raises.
 
 q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), contiguous, one dtype
 (float32 or bfloat16), 1 <= D <= 128, Hq % Hkv == 0; any Sq and Skv.
@@ -23,7 +26,7 @@ from repro_torch.kernels.build import launch, load_library
 from repro_torch.kernels.ref import attention_ref
 
 MAX_HEAD_DIM = 128
-BLOCK_Q = 64  # query rows per CUDA block (csrc kBQ)
+BLOCK_Q = 64  # query rows per CUDA block, both routes (csrc f32::kBQ, tc::kBQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,16 +62,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                              scale=scale)
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    B, Hq, Sq, _ = q.shape
     if B * Hq * -(-Sq // BLOCK_Q) >= 2**31:
         raise ValueError(f"grid of {B * Hq * -(-Sq // BLOCK_Q)} blocks is too large")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    scale_v = scale if scale is not None else 1.0 / (D ** 0.5)
     launch("flash_attention", load_library().flash_attention_fwd, q.device,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-           B, Hq, Hkv, Sq, Skv, D, int(causal), int(window is not None),
-           0 if window is None else int(window), float(softcap or 0.0), float(scale_v))
+           *fwd_args(q, k, v, out, causal, window, softcap, scale))
     return out
+
+
+def fwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             causal: bool, window: Optional[int], softcap: Optional[float],
+             scale: Optional[float]) -> tuple:
+    """`flash_attention_fwd`'s arguments before the stream, for checked
+    CUDA tensors; `flash_compare.py` launches an older kernel with them."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale_v = scale if scale is not None else 1.0 / (D ** 0.5)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            B, Hq, Hkv, Sq, Skv, D, int(causal), int(window is not None),
+            0 if window is None else int(window), float(softcap or 0.0), float(scale_v))

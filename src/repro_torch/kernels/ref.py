@@ -21,6 +21,13 @@ import torch
 
 from repro_torch.kernels.frontier import pack_words
 
+# What the segment and bag wrappers take on CPU tensors, where they run the
+# plain versions below: their kernels' float32 and bfloat16, and float16,
+# which the reference's jnp path computes too. float64 is refused: the
+# reference runs with JAX's x64 off and never computes in it (the plain
+# versions themselves take it, for `chip_smoke.py`'s exact references).
+PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
 
 def mark(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
     """(size,) bool with True at idx[ok]. Every store writes the same value,

@@ -10,10 +10,11 @@ kernel), launch the kernel on the current stream and count launches in
 version (`kernels.ref.segment_sum_ref`) instead and count nothing; on a
 CUDA tensor they launch the kernel or raise.
 
-values (E, D) float32 or bfloat16, contiguous; seg_ids (E,) int32 or
-int64. Output (num_segments, D) float32 (the Pallas kernel's out_dtype):
-out[s] = sum of the rows e with seg_ids[e] == s; ids < 0 and ids >=
-num_segments are dropped, and an empty segment is 0.
+values (E, D) float32 or bfloat16, contiguous (on CPU tensors float16
+too: the plain version takes it, as the reference's jnp path does);
+seg_ids (E,) int32 or int64. Output (num_segments, D) float32 (the Pallas
+kernel's out_dtype): out[s] = sum of the rows e with seg_ids[e] == s; ids
+< 0 and ids >= num_segments are dropped, and an empty segment is 0.
 
   - `segment_sum`        -- any order of ids.
   - `segment_sum_sorted` -- ids sorted ascending (dropped ids < 0 first,
@@ -28,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import launch, load_library
-from repro_torch.kernels.ref import segment_sum_ref
+from repro_torch.kernels.ref import PLAIN_DTYPES, segment_sum_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS = 8  # segments a CUDA block (csrc kWarps)
@@ -38,8 +39,9 @@ def _check(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> No
     if values.dim() != 2 or seg_ids.dim() != 1 or seg_ids.shape[0] != values.shape[0]:
         raise ValueError(f"shapes values {tuple(values.shape)}, seg_ids "
                          f"{tuple(seg_ids.shape)}: want (E, D) and (E,)")
-    if values.dtype not in _DTYPES:
-        raise TypeError(f"values must be float32 or bfloat16, got {values.dtype}")
+    if values.dtype not in (_DTYPES if values.is_cuda else PLAIN_DTYPES):
+        raise TypeError(f"values must be float32 or bfloat16 (or float16 on the CPU), "
+                        f"got {values.dtype} on {values.device}")
     if seg_ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"seg_ids must be int32 or int64, got {seg_ids.dtype}")
     if num_segments < 0:

@@ -125,6 +125,40 @@ def test_bf16_table_keeps_its_dtype_within_one_ulp_of_pallas():
             np.testing.assert_allclose(out.float().numpy(), pallas, rtol=2**-7, atol=1e-30)
 
 
+U16 = 2.0 ** -11  # float16 unit roundoff
+
+
+@pytest.mark.parametrize("B,L,V,D,combine,weighted", BAG_CASES)
+def test_float16_cpu_table_vs_reference(B, L, V, D, combine, weighted):
+    """A float16 table on the CPU: the wrapper runs its plain version, which
+    sums in float32 and rounds once to float16, so it is within U16 |x| of
+    the exact bag x. The reference's plain path rounds the weights, each
+    product and each partial sum to float16: within (L + 2) U16 sum_l
+    |w row| of it, over the count for "mean", plus the division's and
+    the output's rounding."""
+    table, idx, w = _inputs(B, L, V, D, weighted, B * L + 16)
+    t16 = table.astype(np.float16)
+    expect = jops.embedding_bag(jnp.asarray(t16), jnp.asarray(idx),
+                                None if w is None else jnp.asarray(w), combine=combine,
+                                use_pallas=False)
+    assert expect.dtype == jnp.float16
+    ok = idx >= 0
+    rows = t16[np.where(ok, idx, 0)].astype(np.float64)
+    wl = np.where(ok, 1.0 if w is None else w.astype(np.float64), 0.0)[..., None]
+    exact, absum = (wl * rows).sum(1), np.abs(wl * rows).sum(1)
+    cnt = np.maximum(ok.sum(1), 1)[:, None] if combine == "mean" else 1
+    exact, absum = exact / cnt, absum / cnt
+    tol = (L + 2) * U16 * absum + 3 * U16 * np.abs(exact)
+    tt, ti = torch.from_numpy(t16), torch.from_numpy(idx)
+    tw = None if w is None else torch.from_numpy(w)
+    for out in (embedding_bag(tt, ti, tw, combine), ops.embedding_bag(tt, ti, tw, combine),
+                ops.embedding_bag(tt, ti, tw, combine, use_kernel=True)):
+        assert out.dtype == torch.float16 and out.shape == (B, D)
+        port = out.numpy().astype(np.float64)
+        assert (np.abs(port - exact) <= U16 * np.abs(exact) + 1e-6 * absum).all()
+        assert (np.abs(port - np.asarray(expect, np.float64)) <= tol).all()
+
+
 @pytest.mark.parametrize("bad", ["int64 ids", "float64 table", "weights shape",
                                  "float64 weights", "combine", "empty table", "strided"])
 def test_wrapper_input_checks(bad):

@@ -142,3 +142,65 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kw = dict(softcap=0.0)
     with pytest.raises((ValueError, TypeError)):
         flash_attention(q, k, v, **kw)
+
+
+# The CUDA kernel's bf16 route runs P @ V on the tensor cores with P split
+# into two bf16 halves. This CPU emulation of its 64-key online softmax on
+# bf16 inputs (causal, one head at a time) is why: P rounded once to bf16
+# breaks chip_smoke.py's bf16 tolerance (ATTN_TOL), hi + lo does not.
+SPLIT_SEQ, SPLIT_HEADS, SPLIT_DIM, SPLIT_KEYS = 2048, 2, 128, 64
+BF16_TOL = (1e-3, 1e-2)  # chip_smoke.py ATTN_TOL[torch.bfloat16]
+
+
+def _p_times_v(p, v, way):
+    """P @ V in float32 with P as `way` rounds it (v is bf16-valued)."""
+    if way == "float32":
+        return p @ v
+    hi = p.to(torch.bfloat16).float()
+    if way == "bf16":
+        return hi @ v
+    return hi @ v + (p - hi).to(torch.bfloat16).float() @ v
+
+
+def _online_softmax(q, k, v, way):
+    """Causal attention of one (S, D) head by key tiles, as the kernel runs
+    it: float32 sums, the finite mask, output rounded to bf16."""
+    S, D = q.shape
+    rows = torch.arange(S)[:, None]
+    m = torch.full((S, 1), ref.MASK_VALUE)
+    l = torch.zeros((S, 1))
+    acc = torch.zeros((S, D))
+    for k0 in range(0, S, SPLIT_KEYS):
+        s = (q @ k[k0:k0 + SPLIT_KEYS].T) * D ** -0.5
+        s = torch.where(torch.arange(k0, k0 + s.shape[1])[None, :] > rows, ref.MASK_VALUE, s)
+        m_new = torch.maximum(m, s.amax(1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(1, keepdim=True)
+        acc = acc * alpha + _p_times_v(p, v[k0:k0 + SPLIT_KEYS], way)
+        m = m_new
+    return (acc / l).to(torch.bfloat16).double()
+
+
+def test_split_p_holds_the_bf16_tolerance_where_one_rounding_does_not():
+    """Against float64, worst |err| over the bf16 tolerance and the share of
+    elements over it: one bf16 rounding of P exceeds the tolerance, the two
+    halves stay as far inside it as float32 P does."""
+    rng = np.random.default_rng(0)
+    shape = (SPLIT_HEADS, SPLIT_SEQ, SPLIT_DIM)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16).float() for _ in range(3))
+    causal = torch.ones((SPLIT_SEQ, SPLIT_SEQ), dtype=torch.bool).triu(1)
+    worst, over = {}, {}
+    for h in range(SPLIT_HEADS):
+        qd, kd, vd = q[h].double(), k[h].double(), v[h].double()
+        s = (qd @ kd.T * SPLIT_DIM ** -0.5).masked_fill(causal, float("-inf"))
+        exact = torch.softmax(s, dim=1) @ vd
+        tol = BF16_TOL[0] + BF16_TOL[1] * exact.abs()
+        for way in ("float32", "bf16", "split"):
+            ratio = (_online_softmax(q[h], k[h], v[h], way) - exact).abs() / tol
+            worst[way] = max(worst.get(way, 0.0), float(ratio.max()))
+            over[way] = over.get(way, 0) + int((ratio > 1).sum())
+    assert worst["bf16"] > 1 and over["bf16"] > 0
+    assert worst["split"] < 0.5 and over["split"] == 0
+    assert worst["split"] <= 1.01 * worst["float32"]

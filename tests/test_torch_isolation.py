@@ -1,8 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-  - no module of `src/repro_torch` (nor `chip_smoke.py`) imports `jax` or
-    anything of `repro`, by an AST scan and by importing every module in a
-    fresh interpreter;
+  - no module of `src/repro_torch` (nor `chip_smoke.py` and
+    `flash_compare.py` beside it) imports `jax` or anything of `repro`, by
+    an AST scan and by importing every module in a fresh interpreter;
   - entry points asked for no device raise where CUDA is absent, and run
     on the CPU only when `device="cpu"` is passed;
   - a kernel wrapper given CPU tensors runs the plain version and counts
@@ -33,7 +33,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / n for n in ("chip_smoke.py", "flash_compare.py")]
 
 
 def _modules():

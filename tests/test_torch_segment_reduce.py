@@ -252,3 +252,91 @@ def test_cpu_aggregate_counts_no_launch():
     before = dict(LAUNCHES)
     tmp.aggregate(torch.from_numpy(msgs), torch.from_numpy(dst), N, kinds=KINDS)
     assert dict(LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# float16 on CPU tensors
+# ---------------------------------------------------------------------------
+
+# The port's wrappers run their plain version on float16 CPU tensors: it
+# sums in float32 and returns float32 (the documented divergence from the
+# reference's plain path, which sums in float16 and returns float16). So the
+# port must equal the reference on float32 copies of the float16 values
+# (TOL), and lie within the float16 rounding of the reference's own result:
+# a sum of L terms in float16 rounds at most L - 1 partial sums, each by at
+# most U16 * sum |v|, whatever the order.
+U16 = 2.0 ** -11  # float16 unit roundoff
+
+
+def _f16_bounds(h, seg, N):
+    """Exact (float64) sum, mean and their float16 error bounds per (segment,
+    column) for float16 values h: sum L * U16 * sum|v|; mean that over the
+    count, plus the division's rounding."""
+    ok = (seg >= 0) & (seg < N)
+    v = h[ok].astype(np.float64)
+    s, absum, cnt = np.zeros((N, h.shape[1])), np.zeros((N, h.shape[1])), np.zeros((N, 1))
+    np.add.at(s, seg[ok], v)
+    np.add.at(absum, seg[ok], np.abs(v))
+    np.add.at(cnt, seg[ok], 1)
+    s_tol = cnt * U16 * absum
+    c = np.maximum(cnt, 1)
+    mean, mean_tol = s / c, s_tol / c * (1 + U16) + U16 * np.abs(s / c)
+    return s, s_tol, mean, mean_tol
+
+
+def _within(port, expect16, exact, tol):
+    """The port's float32 result within `tol` of the reference's float16."""
+    assert port.dtype == torch.float32
+    assert expect16.dtype == jnp.float16
+    diff = np.abs(port.numpy().astype(np.float64) - np.asarray(expect16, np.float64))
+    assert (diff <= tol).all(), float((diff - tol).max())
+    np.testing.assert_allclose(port.numpy(), exact, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("E,D,N,with_invalid", SEG_CASES)
+def test_float16_cpu_segment_sum_and_mean_vs_reference(E, D, N, with_invalid):
+    vals, seg = _inputs(E, D, N, with_invalid, E + D + 16)
+    h = vals.astype(np.float16)
+    jh, js, th, ts = jnp.asarray(h), jnp.asarray(seg), torch.from_numpy(h), torch.from_numpy(seg)
+    s, s_tol, mean, mean_tol = _f16_bounds(h, seg, N)
+    ref_sum = jops.segment_sum(jh, js, N, use_pallas=False)
+    ref_mean = jops.segment_mean(jh, js, N, use_pallas=False)
+    sh, ss = _sorted(h, seg)
+    sums = [segment_sum(th, ts, N), segment_sum_sorted(torch.from_numpy(sh), torch.from_numpy(ss), N)]
+    for use_kernel in ("auto", True):
+        sums.append(ops.segment_sum(th, ts, N, use_kernel=use_kernel))
+        _within(ops.segment_mean(th, ts, N, use_kernel=use_kernel), ref_mean, mean, mean_tol)
+    for out in sums:
+        _within(out, ref_sum, s, s_tol)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_float16_cpu_aggregate_vs_reference(kind):
+    """`aggregate` with use_kernel="auto" on float16 messages. Max and min
+    stay float16 and equal the reference's. Std goes through the variance:
+    m1 and m2 (of the float16 squares, rounded alike on both sides) within
+    their mean bounds, the reference's m1^2, m2 - m1^2 and sqrt rounding
+    each by U16 of their size."""
+    msgs, dst, N = _graph(seed=6)
+    h = msgs.astype(np.float16)
+    expect = jmp.aggregate(jnp.asarray(h), jnp.asarray(dst), N, kinds=(kind,),
+                           use_pallas=False)[0]
+    (out,) = tmp.aggregate(torch.from_numpy(h), torch.from_numpy(dst), N, kinds=(kind,))
+    s, s_tol, mean, mean_tol = _f16_bounds(h, dst, N)
+    if kind in ("max", "min"):
+        assert out.dtype == torch.float16 and expect.dtype == jnp.float16
+        np.testing.assert_array_equal(out.numpy(), np.asarray(expect))
+    elif kind == "sum":
+        _within(out, expect, s, s_tol)
+    elif kind == "mean":
+        _within(out, expect, mean, mean_tol)
+    else:
+        _, _, m2, m2_tol = _f16_bounds(h * h, dst, N)
+        var = np.maximum(m2 - mean * mean, 0)
+        r = np.asarray(expect, np.float64)
+        var_tol = (m2_tol + (2 * np.abs(mean) + mean_tol) * mean_tol
+                   + 2 * U16 * (mean * mean + m2) + 3 * U16 * r * r + 1e-7)
+        assert out.dtype == torch.float32 and expect.dtype == jnp.float16
+        diff = np.abs(out.numpy().astype(np.float64) ** 2 - r * r)
+        assert (diff <= var_tol).all(), float((diff - var_tol).max())
+        np.testing.assert_allclose(out.numpy() ** 2, var + 1e-6, atol=TOL, rtol=TOL)
