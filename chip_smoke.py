@@ -26,7 +26,10 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      synthetic edges at the repo's ogb_products shape (2,449,029 nodes,
      61,859,140 edges, power-law skewed, 2 % padded): 7 segment_sum launches
      a call, checked against float64 with a self-checked tolerance,
-     profiled and timed beside index_add_;
+     profiled and timed beside index_add_; two launches bit-equal, the
+     task table built with no host sync, what the idle chunk teams cost,
+     and a hub-only segment of 2^20 edges (read in order and in a random
+     order) against its bound;
   7. looks up DIN's histories (serve_bulk, serve_p99) in its full item
      table (1,048,576 x 18) by embedding_bag, sum and mean, weighted and
      not: one launch a call, checked against float64, timed beside
@@ -132,6 +135,13 @@ SEG_GRID = [
     ("D 75 skewed", 200_000, 75, 5000, "skewed", torch.float32),
     ("D 129", 3000, 129, 200, "wide", torch.float32),
     ("bf16 D 75", 4000, 75, 300, "invalid", torch.bfloat16),
+    # a hub of >= 10^5 edges, split into tasks; segments of K - 1, K, K + 1,
+    # 2K and 2K + 1 edges (K = segment_reduce.TASK_EDGES; E from K)
+    ("hub D 75", 120_000, 75, 64, "hub", torch.float32),
+    ("hub D 1", 120_000, 1, 64, "hub", torch.float32),
+    ("bf16 hub D 75", 120_000, 75, 64, "hub", torch.bfloat16),
+    ("K +- 1 edges D 75", None, 75, 9, "k", torch.float32),
+    ("K +- 1 edges D 3", None, 3, 9, "k", torch.float32),
 ]
 # embedding bag against float64: BAG_REL sum_l |w row| per element, as for
 # the segment sum (BAG_GRID: name, B, L, V, D, combine, weighted, dtype,
@@ -153,6 +163,7 @@ CATCH_SHARE = 0.99  # a tolerance must catch a dropped item in this share of row
 
 # GNN aggregation (phase 6): configs/base.py ogb_products, configs/pna.py width
 GNN_SHAPE = (2_449_029, 61_859_140, 75)  # nodes, edges, message width
+HUB_EDGES = 1_048_576  # the hub-only shape: one segment of these edges, phase 6's width
 AGG_KINDS = ("sum", "mean", "max", "min", "std")
 SEG_LAUNCHES_PER_AGGREGATE = 7  # sum 1, mean 2, std 4 (max, min: plain)
 PAD_SHARE = 0.02  # share of edge ids padded with -1
@@ -829,13 +840,33 @@ def seg_tol(abs_sum: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     return scale * (SEG_REL * abs_sum + SEG_ABS)
 
 
+def seg_bound_ms(kept: int, N: int, D: int) -> float:
+    """Least time at the HBM rate for the segment-sum kernel: each kept
+    edge's row of D float32 and its order entry read once, the N + 1
+    offsets read once, the (N, D) output written once."""
+    return (kept * (D * 4 + 8) + (N + 1) * 8 + N * D * 4) / HBM_BYTES_PER_S * 1e3
+
+
 def seg_inputs(E, D, N, ids, dtype, device, seed):
     """Standard normal values and ids: "valid" in [0, N), "invalid" with
     20 % -1 (the test grid's draws), "wide" in [-1, N + 5), "sparse" N
-    apart at most E distinct, "none" all -1, "skewed" a power law."""
+    apart at most E distinct, "none" all -1, "skewed" a power law, "hub"
+    nine tenths of the edges in segment 3 and the rest in [-1, N), "k"
+    segments 1, 2, 4, 6, 7 of K - 1, K, K + 1, 2K and 2K + 1 edges (E
+    from K) and 200 edges in other segments or dropped."""
+    from repro_torch.kernels.segment_reduce import TASK_EDGES as K
+
     rng = np.random.default_rng(seed)
+    if ids == "k":
+        seg = np.concatenate([np.repeat([1, 2, 4, 6, 7], [K - 1, K, K + 1, 2 * K, 2 * K + 1]),
+                              rng.choice([-1, 0, 3, 5, 8, N + 1], size=200)])
+        rng.shuffle(seg)
+        E = len(seg)
     vals = rng.standard_normal((E, D)).astype(np.float32)
-    if ids == "sparse":
+    if ids == "hub":
+        seg = rng.integers(-1, N, E)
+        seg[rng.permutation(E)[:E * 9 // 10]] = 3
+    elif ids == "sparse":
         seg = rng.choice(N, size=E)
     elif ids == "wide":
         seg = rng.integers(-1, N + 5, E)
@@ -843,7 +874,7 @@ def seg_inputs(E, D, N, ids, dtype, device, seed):
         seg = np.full(E, -1)
     elif ids == "skewed":
         seg = (rng.random(E) ** 2 * N).astype(np.int64)
-    else:
+    elif ids in ("valid", "invalid"):
         seg = rng.integers(0, N, E)
         if ids == "invalid":
             seg[rng.random(E) < 0.2] = -1
@@ -879,7 +910,8 @@ def check_segment_grid(device):
                 max_err = max(max_err, float(diff.max()))
                 used = max(used, float((diff / tol).max()))
     log(f"[kernel] segment_sum: both wrappers on {len(SEG_GRID)} cases (the test grid, "
-        f"sparse ids, ids >= N, all -1, E 1, D 1 / 75 / 129, bf16) within {SEG_REL} "
+        f"sparse ids, ids >= N, all -1, E 1, D 1 / 75 / 129, bf16, hubs of >= 10^5 edges "
+        f"at D 75 / 1 and in bf16, segments of K +- 1 and 2K (+ 1) edges) within {SEG_REL} "
         f"sum|v| + {SEG_ABS} of the float64 plain version: max err {max_err:.3g}, "
         f"{used:.4f} of the tolerance")
     return max_err
@@ -1011,7 +1043,8 @@ def gnn_aggregation(device):
     with the tolerance's self-check (each segment's last edge dropped)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.build import LAUNCHES
-    from repro_torch.kernels.segment_reduce import _launch_csr, segment_order, segment_sum
+    from repro_torch.kernels.segment_reduce import (TASK_EDGES, _launch_csr, segment_order,
+                                                    segment_sum, segment_tasks)
     from repro_torch.models.gnn.message_passing import aggregate
 
     N, E, D = GNN_SHAPE
@@ -1089,15 +1122,57 @@ def gnn_aggregation(device):
     lib_ms = median_ms(lambda: torch.zeros((N, D), device=device).index_add_(0, ids, vals), reps=5)
     del ids, vals, keep
     torch.cuda.empty_cache()
-    # the kernel must read each kept row and its order entry once, the
-    # offsets once, and write the output once; the function reads all ids
-    b_ms = (kept * (D * 4 + 8) + (N + 1) * 8 + N * D * 4) / HBM_BYTES_PER_S * 1e3
-    b1_ms = (kept * (4 + 8) + (N + 1) * 8 + N * 4) / HBM_BYTES_PER_S * 1e3
+    b_ms, b1_ms = seg_bound_ms(kept, N, D), seg_bound_ms(kept, N, 1)
+    # the function reads all ids, each kept row once, and writes the output
     fb_ms = (kept * D * 4 + E * 4 + N * D * 4) / HBM_BYTES_PER_S * 1e3
-    log(f"[gnn] segment_sum at width {D}: kernel alone {k_ms:.3f} ms, bound {b_ms:.3f} ms "
-        f"(bytes / 3.35 TB/s); wrapper (sort + offsets + kernel) {w_ms:.3f} ms, bound of "
-        f"the function {fb_ms:.3f} ms; plain {p_ms:.3f} ms; index_add_ over the kept edges "
-        f"{lib_ms:.3f} ms; at width 1 (count): kernel {k1_ms:.3f} ms, bound {b1_ms:.3f} ms")
+    # not the bound: a gathered 4-byte value moves a whole 32-byte sector
+    sector1_ms = (kept * (32 + 8) + (N + 1) * 8 + N * 4) / HBM_BYTES_PER_S * 1e3
+    tasks_ms = median_ms(lambda: segment_tasks(offsets), reps=10)
+    # what the width-1 launch's gathers alone cost: ones[order], one PyTorch call
+    gather1_ms = median_ms(lambda: torch.index_select(ones, 0, order), reps=10)
+    log(f"[gnn] segment_sum at width {D}: kernel alone (task table + kernel) {k_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms (bytes / 3.35 TB/s); the task table alone {tasks_ms:.3f} ms; "
+        f"wrapper (sort + offsets + table + kernel) {w_ms:.3f} ms, bound of the function "
+        f"{fb_ms:.3f} ms; plain {p_ms:.3f} ms; index_add_ over the kept edges {lib_ms:.3f} ms; "
+        f"at width 1 (count): kernel {k1_ms:.3f} ms, bound {b1_ms:.3f} ms (4 B a value; "
+        f"{sector1_ms:.3f} ms at a 32-byte sector a value), the gather ones[order] alone "
+        f"{gather1_ms:.3f} ms")
+    # what the chunk teams' host-known bound costs: the kernel's own device
+    # time with one empty segment, so that every chunk team is idle, with
+    # E edges' worth of teams and with K edges' worth (profiled: events
+    # around so short a launch time the host's launch path)
+    empty = torch.zeros(2, dtype=torch.int64, device=device)
+    n_tasks = int(segment_tasks(offsets)[-1])
+    sym = KERNELS["segment_sum"][2]
+
+    def idle_kernel_ms(v):
+        ops = device_ops(lambda: [_launch_csr(v, None, empty, 1) for _ in range(10)], want=sym)
+        us, calls = (sum(x) for x in zip(*(uc for name, uc in ops.items() if sym in name)))
+        return us / calls / 1e3
+
+    idle_ms = {}
+    for width, v in ((D, msgs), (1, ones)):
+        idle_ms[f"width {width}"] = dict(all_teams=idle_kernel_ms(v),
+                                         k_edges_teams=idle_kernel_ms(v[:TASK_EDGES]))
+    log(f"[gnn] segment_sum chunk teams: {2 * -(-E // TASK_EDGES)} launched (2 ceil(E / K)), "
+        f"{n_tasks} with a task on this graph; the kernel with every chunk team idle (device "
+        f"time; against the 2 teams of K edges): " + ", ".join(
+            f"{t['all_teams']:.4f} ms ({t['k_edges_teams']:.4f}) at {k}"
+            for k, t in idle_ms.items()))
+
+    # the same bits on every launch (width 1: a random column, not the
+    # ones, whose sums are exact in any order), and no host sync
+    for what, v in ((f"width {D}", msgs), ("width 1", msgs[:, :1].contiguous())):
+        if not torch.equal(_launch_csr(v, order, offsets, N), _launch_csr(v, order, offsets, N)):
+            raise AssertionError(f"segment_sum at {what}: two launches differ")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _launch_csr(msgs, order, offsets, N)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"[gnn] segment_sum: two launches bit-equal at width {D} and at width 1; the task "
+        f"table and the launch make no host sync")
+    hub = hub_only(device, D, g)
 
     # against float64, DIAG_COLS columns at a time; the self-check drops
     # each non-empty segment's last edge from the plain version
@@ -1135,14 +1210,48 @@ def gnn_aggregation(device):
     info = dict(nodes=N, edges=E, width=D, kept=kept, max_segment=max_len,
                 first_ms=first_ms, warm_ms=warm_ms, peak_memory_gb=peak_gb,
                 launches=launches["segment_sum"], profile_ms=split,
-                profile_launches=traced, kernel_ms=k_ms,
+                profile_launches=traced, kernel_ms=k_ms, task_table_ms=tasks_ms,
                 kernel_bound_ms=b_ms, count_kernel_ms=k1_ms, count_bound_ms=b1_ms,
+                count_sector_floor_ms=sector1_ms, count_gather_ms=gather1_ms,
+                chunk_tasks=n_tasks, idle_chunk_teams_ms=idle_ms, hub_only=hub,
                 wrapper_ms=w_ms, function_bound_ms=fb_ms, plain_ms=p_ms, index_add_ms=lib_ms,
                 errors={k: dict(max_abs_err=e, share_of_tol=u) for k, (e, u) in errs.items()},
                 drop_edge_share=share)
     del msgs, outs, dst, dst_drop, order, offsets, ones
     torch.cuda.empty_cache()
     return row, info
+
+
+def hub_only(device, D, g):
+    """One segment of HUB_EDGES edges, its rows read in order and in a
+    random order (as a power-law hub's are on the path), at width D and at
+    width 1: the kernel alone against its bound, the result against
+    float64."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import _launch_csr
+
+    ids = torch.zeros(HUB_EDGES, dtype=torch.int32, device=device)
+    offsets = torch.tensor([0, HUB_EDGES], dtype=torch.int64, device=device)
+    orders = (("in order", torch.arange(HUB_EDGES, device=device)),
+              ("random order", torch.randperm(HUB_EDGES, generator=g, device=device)))
+    out = {}
+    for width in (D, 1):
+        v = torch.randn((HUB_EDGES, width), generator=g, device=device)
+        v64 = v.double()
+        want, tol = ref.segment_sum_ref(v64, ids, 1), seg_tol(v64.abs().sum(0))
+        bound = seg_bound_ms(HUB_EDGES, 1, width)
+        for how, order in orders:
+            diff = (_launch_csr(v, order, offsets, 1).double() - want).abs()
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"hub-only segment_sum {how} at width {width}: max err "
+                                     f"{float(diff.max())}")
+            ms = median_ms(lambda: _launch_csr(v, order, offsets, 1), reps=10)
+            out[f"{how}, width {width}"] = dict(ms=ms, bound_ms=bound,
+                                               max_abs_err=float(diff.max()))
+            log(f"[gnn] hub only, one segment of {HUB_EDGES} edges {how} at width {width}: "
+                f"kernel {ms:.4f} ms, bound {bound:.4f} ms; max err {float(diff.max()):.3g}")
+        del v, v64, want
+    return out
 
 
 # ---------------------------------------------------------------------------

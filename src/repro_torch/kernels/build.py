@@ -94,23 +94,25 @@ def build(csrc: Path = CSRC) -> Path:
     return out
 
 
+_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+SIGNATURES = {  # C entry point -> its argument types; each returns an int
+    "frontier_expand_dense": [_P, _P, _P, _I64, _I64, _I32, _I64, _P],
+    "frontier_expand_packed": [_P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _I64,
+                            _I32, _I32, _I32, _I64, _F32, _F32, _P],
+    "segment_sum": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I32, _P],
+    "embedding_bag": [_P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(csrc: Path = CSRC) -> ctypes.CDLL:
     """Build (first use only) and load the kernels; argtypes declared.
     `flash_compare.py` passes another `csrc` to load an older kernel."""
     lib = ctypes.CDLL(str(build(csrc)))
-    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.frontier_expand_dense.argtypes = [p, p, p, i64, i64, i32, i64, p]
-    lib.frontier_expand_dense.restype = i32
-    lib.frontier_expand_packed.argtypes = [p, p, p, i64, i64, i32, i64, i64, p]
-    lib.frontier_expand_packed.restype = i32
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i64, i64, i64, i64, i64,
-                                        i32, i32, i32, i64, f32, f32, p]
-    lib.flash_attention_fwd.restype = i32
-    lib.segment_sum.argtypes = [p, p, p, p, i32, i64, i32, p]
-    lib.segment_sum.restype = i32
-    lib.embedding_bag.argtypes = [p, p, p, p, i32, i64, i64, i32, i32, i32, p]
-    lib.embedding_bag.restype = i32
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I32
     return lib
 
 

@@ -13,27 +13,55 @@
 // segment s owns sorted positions [offsets[s], offsets[s + 1]) and dropped
 // edges lie outside every segment. The TPU kernel turns a block of sorted
 // edges into a one-hot matrix product on its matrix unit and accumulates
-// across sequential grid steps; neither carries over. Here one warp owns one
-// output row: it walks that segment's edges in sorted order, reading
-// values[order[e]] through the permutation (no sorted copy of the values),
-// keeps the sums in registers, combines its lanes by shuffles in a fixed
-// order and stores the row once. No atomics, no zero-fill pass, and the
-// same inputs give the same bits on every run.
+// across sequential grid steps; neither carries over.
 //
-// The warp's 32 lanes are split into 32 / G edge slots of G lanes, with G
-// the power of two at or above D (at most 32; a template parameter): at
-// D = 75 all 32 lanes read one edge's row, three columns each; at D = 1
-// (the count launch of a mean) 32 edges are read at once. At G = 32 a lane
-// holds kCols columns per pass, and rows wider than 32 * kCols take several
-// passes over the segment.
+// Tasks. The unit of work is a task of at most k sorted edges (the
+// wrapper's TASK_EDGES, passed at launch), run by a team of lanes that reads values[order[e]] through the permutation (no
+// sorted copy of the values) and keeps its sums in registers. A segment of
+// L <= k edges is one task, whose team writes the output row. A segment of
+// L > k edges (a power-law hub) is ceil(L / k) tasks, edges [j k, (j + 1) k)
+// for task j, spread over the grid: each writes a float32 partial row
+// into a workspace, and the team that arrives last (an int counter per
+// segment) sums the segment's partial rows in task order, j = 0, 1, ...,
+// and writes the output row. Task boundaries depend on the offsets and k
+// alone, each team sums its edges in a fixed order and combines its lanes
+// by shuffles in a fixed tree, so the same inputs give the same bits on
+// every run; the only atomic is on the integer counter.
+//
+// The grid: first n_chunks = 2 ceil(E / k) chunk teams, which hold every
+// task of the long segments (ceil(L / k) < 2 L / k for L > k), then one
+// team per segment, which sums a short segment and returns at a long one.
+// The task table is one prefix sum that the wrapper builds on the device,
+// with no host sync: task_end[s] = the number of tasks of the long
+// segments up to s. Chunk team x runs task x - (task_end[s] - ceil(L / k))
+// of the first segment s with task_end[s] > x (a binary search; teams from
+// task_end[N - 1] on return) and writes partial row x; the counter of
+// segment s is arrivals[task_end[s] - ceil(L / k)], zero at the launch.
+// The chunk teams come first so that the hubs' tasks start early. The
+// surplus teams read one table entry and return (their cost on the
+// ogb_products graph: PERF.md).
+//
+// Layout. G, the lanes that share one edge's row, is the power of two at
+// or above D (at most 32; a template parameter). At G = 32 (D > 16, the
+// GNN width 75) a team is a warp: every lane reads one edge's row, kCols
+// columns a lane per pass over the task (rows wider than 32 kCols take
+// several passes), kRowsWide rows in flight. At G < 32 (D = 1 is the count
+// launch of every mean: an average segment there has 25 edges) a warp
+// holds several teams of kNarrowTeam lanes (G lanes at G = 16), each a
+// task of its own, so that one warp has several short segments in flight,
+// and each team holds kNarrowTeam / G edge slots of kRowsNarrow rows. In
+// both, a team loads the order entries of its next rows while the values
+// of the current ones are in flight, and a row past the task's end issues
+// no load (predicated off).
 //
 // Bound on this card: memory. The kernel must read each kept edge's row of
 // values and its order entry once, the offsets once, and write the output
-// once. Reads of values[order[e]] are random rows (a 300-byte row at the
-// GNN width touches three or four 128-byte lines). A power-law hub
-// serialises on its warp: each slot keeps up to kUnroll row loads in
-// flight so that their latencies overlap; splitting hubs across warps is
-// later work.
+// once. Reads of values[order[e]] are random rows: a 300-byte row at the
+// GNN width touches three or four 128-byte lines, and a 4-byte value at
+// width 1 a whole 32-byte sector.
+//
+// Registers and occupancy: see the table after the kernel. The constants
+// were chosen by timing variants (flash_compare.py --segment; PERF.md).
 //
 // Plain C interface, loaded with ctypes: pointers and the stream as void*.
 // The entry point launches on the given stream, allocates nothing, and
@@ -45,118 +73,210 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps, 8 segments a block
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 3;       // columns a lane holds per pass at G = 32
-constexpr int kUnroll = 8;     // rows a slot has in flight
+constexpr int kThreads = 256;     // threads a block
+constexpr int kCols = 3;          // columns a lane holds per pass at G = 32
+constexpr int kRowsWide = 4;      // rows a team has in flight at G = 32
+constexpr int kNarrowTeam = 8;    // lanes a task at G < 8
+constexpr int kRowsNarrow = 4;    // rows an edge slot has in flight at G < 32
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+template <int G>
+struct Layout {
+  static constexpr int kTeam = G < kNarrowTeam ? kNarrowTeam : G;  // lanes a task
+  static constexpr int kSlots = kTeam / G;                          // edge slots a team
+  static constexpr int kRows = G == 32 ? kRowsWide : kRowsNarrow;   // rows in flight a slot
+  static constexpr int kC = G == 32 ? kCols : 1;                    // columns a lane, a pass
+  static constexpr int kStep = kSlots * kRows;                      // edges a pass
+};
+
+// order entries of the rows that edge slot `slot` reads in the pass at c;
+// -1 past the end, which issues no load
+template <int G>
+__device__ __forceinline__ void load_rows(const int64_t* __restrict__ order,
+                                          int64_t c, int64_t end, int slot,
+                                          int64_t (&r)[Layout<G>::kRows]) {
+#pragma unroll
+  for (int u = 0; u < Layout<G>::kRows; ++u) {
+    const int64_t p = c + u * Layout<G>::kSlots + slot;
+    r[u] = p < end ? (order ? __ldg(order + p) : p) : -1;
+  }
+}
+
+// Sums values[order[e]] over sorted positions e in [begin, end) into
+// dst[0, D): lanes of slot 0 store. `tl` is the lane within the team and
+// `mask` the team's lanes.
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const T* __restrict__ values,
-                   const int64_t* __restrict__ order,  // null: identity
-                   const int64_t* __restrict__ offsets, float* __restrict__ out,
-                   int64_t n_segments, int D) {
-  constexpr int kSlots = 32 / G;                  // edge slots a warp
-  constexpr int kU = G < kUnroll ? G : kUnroll;   // rows in flight a slot
-  constexpr int kC = G < 32 ? 1 : kCols;          // columns a lane, a pass
-  const int64_t seg = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (seg >= n_segments) return;
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % G;   // column lane within an edge slot
-  const int slot = lane / G;  // edge slot
-  const int64_t begin = offsets[seg], end = offsets[seg + 1];
-  float* row_out = out + seg * D;
-  for (int d0 = 0; d0 < D; d0 += G * kC) {
-    float acc[kC];
+__device__ __forceinline__ void sum_task(const T* __restrict__ values,
+                                         const int64_t* __restrict__ order,
+                                         int64_t begin, int64_t end,
+                                         float* __restrict__ dst, int D, int tl,
+                                         unsigned mask) {
+  using Ly = Layout<G>;
+  const int sub = tl % G;   // column lane within an edge slot
+  const int slot = tl / G;  // edge slot
+  for (int d0 = 0; d0 < D; d0 += G * Ly::kC) {
+    float acc[Ly::kC];
 #pragma unroll
-    for (int k = 0; k < kC; ++k) acc[k] = 0.f;
-    // 32 edges at a time: each lane loads one order entry (coalesced), then
-    // each slot reads kU rows before it adds any, so that a hub's row
-    // loads overlap instead of waiting on each other
-    for (int64_t c = begin; c < end; c += 32) {
-      const int64_t p = c + lane;
-      const int64_t mine = p < end ? (order ? __ldg(order + p) : p) : -1;
-      const int64_t mine_0 = __shfl_sync(0xffffffffu, mine, 0);  // a live row
-#pragma unroll 1
-      for (int j0 = 0; j0 < 32; j0 += kSlots * kU) {
-        float x[kU][kC];
+    for (int k = 0; k < Ly::kC; ++k) acc[k] = 0.f;
+    int64_t next[Ly::kRows];
+    load_rows<G>(order, begin, end, slot, next);
+    for (int64_t c = begin; c < end; c += Ly::kStep) {
+      int64_t r[Ly::kRows];
 #pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          const int64_t r = __shfl_sync(0xffffffffu, mine, j0 + u * kSlots + slot);
-          // every load is issued (a dead one reads a live row, or column
-          // D - 1) and a select drops it: no branch stands between the
-          // loads, so they are all in flight at once
-          const T* row = values + (r >= 0 ? r : mine_0) * D;
+      for (int u = 0; u < Ly::kRows; ++u) r[u] = next[u];
+      // the next pass's order entries go out with this pass's rows
+      load_rows<G>(order, c + Ly::kStep, end, slot, next);
+      float x[Ly::kRows][Ly::kC];
 #pragma unroll
-          for (int k = 0; k < kC; ++k) {
-            const int d = d0 + sub + k * G;
-            const float v = to_float(row[d < D ? d : D - 1]);
-            x[u][k] = r >= 0 && d < D ? v : 0.f;
-          }
+      for (int u = 0; u < Ly::kRows; ++u) {
+#pragma unroll
+        for (int k = 0; k < Ly::kC; ++k) {
+          const int d = d0 + sub + k * G;
+          x[u][k] = r[u] >= 0 && d < D ? to_float(values[r[u] * D + d]) : 0.f;
         }
+      }
 #pragma unroll
-        for (int u = 0; u < kU; ++u) {
+      for (int u = 0; u < Ly::kRows; ++u) {
 #pragma unroll
-          for (int k = 0; k < kC; ++k) acc[k] += x[u][k];
-        }
+        for (int k = 0; k < Ly::kC; ++k) acc[k] += x[u][k];
       }
     }
     // combine the edge slots: lanes sub, sub + G, sub + 2G, ... in a fixed tree
 #pragma unroll
-    for (int k = 0; k < kC; ++k) {
+    for (int k = 0; k < Ly::kC; ++k) {
 #pragma unroll
-      for (int off = 16; off >= G; off >>= 1) {
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      for (int off = Ly::kTeam / 2; off >= G; off >>= 1) {
+        acc[k] += __shfl_xor_sync(mask, acc[k], off);
       }
     }
     if (slot == 0) {
 #pragma unroll
-      for (int k = 0; k < kC; ++k) {
+      for (int k = 0; k < Ly::kC; ++k) {
         const int d = d0 + sub + k * G;
-        if (d < D) row_out[d] = acc[k];
+        if (d < D) dst[d] = acc[k];
       }
     }
   }
 }
 
+// the first segment s with task_end[s] > x (task_end ascending, n entries)
+__device__ __forceinline__ int64_t task_segment(const int64_t* __restrict__ task_end,
+                                                int64_t n, int64_t x) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (__ldg(task_end + mid) <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_kernel(const T* __restrict__ values,
+                   const int64_t* __restrict__ order,  // null: identity
+                   const int64_t* __restrict__ offsets,
+                   const int64_t* __restrict__ task_end, int64_t k, int64_t n_chunks,
+                   float* __restrict__ partial, int* __restrict__ arrivals,
+                   float* __restrict__ out, int64_t n_segments, int D) {
+  constexpr int kTeam = Layout<G>::kTeam;
+  const int64_t team = (int64_t)blockIdx.x * (kThreads / kTeam) + threadIdx.x / kTeam;
+  const int tl = threadIdx.x % kTeam;
+  const unsigned mask =
+      kTeam == 32 ? 0xffffffffu : ((1u << kTeam) - 1) << ((threadIdx.x & 31) & ~(kTeam - 1));
+  if (team >= n_chunks) {  // a segment: its one task, unless it is long
+    const int64_t seg = team - n_chunks;
+    if (seg >= n_segments) return;
+    const int64_t begin = offsets[seg], end = offsets[seg + 1];
+    if (end - begin <= k) sum_task<T, G>(values, order, begin, end, out + seg * D, D, tl, mask);
+    return;
+  }
+  // chunk team `team`: a task of a long segment, which writes partial row `team`
+  if (team >= task_end[n_segments - 1]) return;
+  const int64_t seg = task_segment(task_end, n_segments, team);
+  const int64_t seg_begin = offsets[seg], seg_end = offsets[seg + 1];
+  const int64_t n_tasks = (seg_end - seg_begin + k - 1) / k;
+  const int64_t row0 = task_end[seg] - n_tasks;  // the partial row of task 0
+  const int64_t begin = seg_begin + (team - row0) * k;
+  const int64_t end = begin + k < seg_end ? begin + k : seg_end;
+  sum_task<T, G>(values, order, begin, end, partial + team * D, D, tl, mask);
+  // the last of the segment's tasks to arrive sums the partial rows in
+  // task order: each team's row is visible before its arrival counts
+  __threadfence();
+  __syncwarp(mask);
+  int last = 0;
+  if (tl == 0) {
+    __threadfence();
+    last = atomicAdd(arrivals + row0, 1) == n_tasks - 1;
+  }
+  last = __shfl_sync(mask, last, 0, kTeam);
+  if (!last) return;
+  __threadfence();
+  const float* rows = partial + row0 * D;
+  for (int d = tl; d < D; d += kTeam) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int64_t i = 0; i < n_tasks; ++i) acc += __ldcg(rows + i * D + d);
+    out[seg * D + d] = acc;
+  }
+}
+
+// Registers a thread (nvcc -Xptxas -v, sm_90a, CUDA 12.8) and the blocks
+// of 256 threads an SM holds by them; no shared memory, no barriers:
+//   G = 32 (D > 16; the GNN width 75): 48 -> 5 blocks, 40 warps
+//   G = 16 ... 2: 64 -> 4 blocks, 32 warps (4-8 bytes spilled, but bf16 at
+//                 G = 16, 8)
+//   G = 1 (the count launch): 64 -> 4 blocks, 32 warps (128 teams)
+
 template <typename T, int G>
 int launch_g(const void* values, const void* order, const void* offsets,
-             void* out, int64_t n_segments, int D, cudaStream_t stream) {
-  const int64_t blocks = (n_segments + kWarps - 1) / kWarps;
+             const void* task_end, int64_t k, int64_t n_chunks, void* partial,
+             void* arrivals, void* out, int64_t n_segments, int D, cudaStream_t stream) {
+  constexpr int64_t kTeams = kThreads / Layout<G>::kTeam;
+  const int64_t blocks = (n_chunks + n_segments + kTeams - 1) / kTeams;
+  if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidConfiguration;
   segment_sum_kernel<T, G><<<(unsigned int)blocks, kThreads, 0, stream>>>(
       (const T*)values, (const int64_t*)order, (const int64_t*)offsets,
-      (float*)out, n_segments, D);
+      (const int64_t*)task_end, k, n_chunks, (float*)partial, (int*)arrivals, (float*)out,
+      n_segments, D);
   return (int)cudaGetLastError();
 }
 
-// G, the lanes that share one edge's row: the power of two at or above D,
-// at most 32
 template <typename T>
 int launch(const void* values, const void* order, const void* offsets,
-           void* out, int64_t n_segments, int D, cudaStream_t stream) {
-  if (D <= 1) return launch_g<T, 1>(values, order, offsets, out, n_segments, D, stream);
-  if (D <= 2) return launch_g<T, 2>(values, order, offsets, out, n_segments, D, stream);
-  if (D <= 4) return launch_g<T, 4>(values, order, offsets, out, n_segments, D, stream);
-  if (D <= 8) return launch_g<T, 8>(values, order, offsets, out, n_segments, D, stream);
-  if (D <= 16) return launch_g<T, 16>(values, order, offsets, out, n_segments, D, stream);
-  return launch_g<T, 32>(values, order, offsets, out, n_segments, D, stream);
+           const void* task_end, int64_t k, int64_t n_chunks, void* partial,
+           void* arrivals, void* out, int64_t n_segments, int D, cudaStream_t stream) {
+#define SEGMENT_SUM_LAUNCH(G)                                                 \
+  return launch_g<T, G>(values, order, offsets, task_end, k, n_chunks, partial, \
+                        arrivals, out, n_segments, D, stream)
+  if (D <= 1) SEGMENT_SUM_LAUNCH(1);
+  if (D <= 2) SEGMENT_SUM_LAUNCH(2);
+  if (D <= 4) SEGMENT_SUM_LAUNCH(4);
+  if (D <= 8) SEGMENT_SUM_LAUNCH(8);
+  if (D <= 16) SEGMENT_SUM_LAUNCH(16);
+  SEGMENT_SUM_LAUNCH(32);
+#undef SEGMENT_SUM_LAUNCH
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. order may be null (values already sorted).
+// task_end: N entries (the wrapper's segment_tasks, built with task length
+// k); n_chunks: 2 ceil(E / k) chunk teams; partial: n_chunks rows of D
+// float32; arrivals: n_chunks ints, zero.
 extern "C" int segment_sum(const void* values, const void* order,
-                           const void* offsets, void* out, int dtype,
-                           int64_t n_segments, int D, void* stream) {
+                           const void* offsets, const void* task_end, int64_t k,
+                           int64_t n_chunks, void* partial, void* arrivals,
+                           void* out, int dtype, int64_t n_segments, int D,
+                           void* stream) {
   if (n_segments == 0 || D == 0) return 0;
   return dtype == 0
-             ? launch<float>(values, order, offsets, out, n_segments, D,
-                             (cudaStream_t)stream)
-             : launch<__nv_bfloat16>(values, order, offsets, out, n_segments,
-                                     D, (cudaStream_t)stream);
+             ? launch<float>(values, order, offsets, task_end, k, n_chunks, partial,
+                             arrivals, out, n_segments, D, (cudaStream_t)stream)
+             : launch<__nv_bfloat16>(values, order, offsets, task_end, k, n_chunks,
+                                     partial, arrivals, out, n_segments, D,
+                                     (cudaStream_t)stream);
 }

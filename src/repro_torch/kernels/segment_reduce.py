@@ -1,14 +1,14 @@
 """Segment sum on Hopper: the GNN message-aggregation primitive.
 
-The CUDA kernel is in `csrc/segment_sum.cu` (one warp per output row,
-walking that segment's edges in sorted order; see its header for the TPU
-kernel it replaces and what bounds it). The wrappers here check their
-inputs, group the edges by segment with PyTorch (a stable sort, then
-segment offsets by `searchsorted`, as the reference sorts outside its
-kernel), launch the kernel on the current stream and count launches in
-`kernels.build.LAUNCHES`. For tensors on the CPU they run the kernel's plain
-version (`kernels.ref.segment_sum_ref`) instead and count nothing; on a
-CUDA tensor they launch the kernel or raise.
+The CUDA kernel is in `csrc/segment_sum.cu` (see its header for the TPU
+kernel it replaces, what bounds it, and its registers and occupancy). The
+wrappers here check their inputs, group the edges by segment with PyTorch
+(a stable sort, then segment offsets by `searchsorted`, as the reference
+sorts outside its kernel), build the kernel's task table
+(`segment_tasks`), launch the kernel on the current stream and count
+launches in `kernels.build.LAUNCHES`. For tensors on the CPU they run the
+kernel's plain version (`kernels.ref.segment_sum_ref`) instead and count
+nothing; on a CUDA tensor they launch the kernel or raise.
 
 values (E, D) float32 or bfloat16, contiguous (on CPU tensors float16
 too: the plain version takes it, as the reference's jnp path does);
@@ -20,6 +20,22 @@ kernel's out_dtype): out[s] = sum of the rows e with seg_ids[e] == s; ids
   - `segment_sum_sorted` -- ids sorted ascending (dropped ids < 0 first,
                             ids >= num_segments last); it reads the values
                             in place, with no sort and no permutation.
+
+Tasks. The kernel's unit of work is a task of at most K = TASK_EDGES
+sorted edges, so that no segment's edges wait on one warp: a segment of L
+<= K edges is one task, which writes the output row; a segment of L > K
+edges (a power-law hub) is ceil(L / K) tasks, edges [j K, (j + 1) K) for
+task j, each writing a float32 partial row into a workspace, and the last
+of them to finish sums the partial rows in task order and writes the
+output row. The boundaries depend on the offsets and K alone, and every
+sum is taken in a fixed order, so the same inputs give the same bits on
+every run; there are no atomics on float data (one int counter a long
+segment). The task table (`segment_tasks`) is one prefix sum over the
+segments, built on the device with no host sync; the grid is sized by a
+bound known on the host, 2 ceil(E / K) chunk teams for the long segments'
+tasks (ceil(L / K) < 2 L / K each) and one team per segment. The wrapper
+allocates the workspace, 2 ceil(E / K) rows of D float32, and the
+counters.
 """
 
 from __future__ import annotations
@@ -32,7 +48,18 @@ from repro_torch.kernels.build import launch, load_library
 from repro_torch.kernels.ref import PLAIN_DTYPES, segment_sum_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 8  # segments a CUDA block (csrc kWarps)
+TASK_EDGES = 1024  # K: edges a task at most (passed to the kernel)
+
+
+def segment_tasks(offsets: torch.Tensor, k: int = TASK_EDGES) -> torch.Tensor:
+    """The kernel's task table for segments [offsets[s], offsets[s + 1]):
+    (N,) int64, task_end[s] = the number of tasks of the segments up to s
+    that have more than k edges (ceil(L / k) each). The tasks of such a
+    segment s are task_end[s] - ceil(L / k), ..., task_end[s] - 1, in
+    order: the chunk teams that run them and the partial rows they write.
+    One prefix sum on the device, with no host sync."""
+    lengths = offsets.diff()
+    return torch.where(lengths > k, (lengths + k - 1) // k, 0).cumsum(0)
 
 
 def _check(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> None:
@@ -65,18 +92,22 @@ def _offsets(keys_sorted: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 def _launch_csr(values: torch.Tensor, order: Optional[torch.Tensor],
                 offsets: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """The kernel alone, on CUDA tensors: out[s] = sum of values[order[e]]
-    (values[e] when order is None) over e in [offsets[s], offsets[s + 1])."""
-    out = torch.empty((num_segments, values.shape[1]), dtype=torch.float32,
-                      device=values.device)
+    """The task table and the kernel, on CUDA tensors: out[s] = sum of
+    values[order[e]] (values[e] when order is None) over e in [offsets[s],
+    offsets[s + 1])."""
+    E, D = values.shape
+    out = torch.empty((num_segments, D), dtype=torch.float32, device=values.device)
     if out.numel() == 0:
         return out
-    if -(-num_segments // _WARPS) >= 2**31:
-        raise ValueError(f"{num_segments} segments is too many for one grid")
+    k = TASK_EDGES
+    task_end = segment_tasks(offsets, k)
+    n_chunks = 2 * -(-E // k)  # the long segments' tasks: ceil(L / k) < 2 L / k each
+    partial = torch.empty((n_chunks, D), dtype=torch.float32, device=values.device)
+    arrivals = torch.zeros(n_chunks, dtype=torch.int32, device=values.device)
     launch("segment_sum", load_library().segment_sum, values.device,
            values.data_ptr(), None if order is None else order.data_ptr(),
-           offsets.data_ptr(), out.data_ptr(), _DTYPES[values.dtype],
-           num_segments, values.shape[1])
+           offsets.data_ptr(), task_end.data_ptr(), k, n_chunks, partial.data_ptr(),
+           arrivals.data_ptr(), out.data_ptr(), _DTYPES[values.dtype], num_segments, D)
     return out
 
 

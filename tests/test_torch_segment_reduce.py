@@ -21,7 +21,8 @@ from repro.kernels import ref as jref
 from repro.models.gnn import message_passing as jmp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import LAUNCHES
-from repro_torch.kernels.segment_reduce import segment_sum, segment_sum_sorted
+from repro_torch.kernels.segment_reduce import (TASK_EDGES, segment_order, segment_sum,
+                                                segment_sum_sorted, segment_tasks)
 from repro_torch.models.gnn import message_passing as tmp
 from test_kernels import SEG_CASES
 
@@ -189,6 +190,145 @@ def test_wrapper_input_checks(bad):
     for fn in (segment_sum, segment_sum_sorted):
         with pytest.raises(err):
             fn(vals, seg, N)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's task table and its two passes
+# ---------------------------------------------------------------------------
+
+# The CUDA kernel cannot run here, so its schedule is held here: the task
+# table `segment_tasks` builds, decoded as the kernel decodes it, and a
+# plain emulation of its two passes over that table.
+SEG_REL, SEG_ABS = 1e-6, 1e-6  # chip_smoke.py seg_tol, against float64
+
+
+def _lengths(picks, k, seed):
+    """Segment lengths from picks: 0, k - 1, k, k + 1, 10 k, or small."""
+    rng = np.random.default_rng(seed)
+    named = (0, k - 1, k, k + 1, 10 * k)
+    return [named[p] if p < len(named) else int(rng.integers(0, 3 * k)) for p in picks]
+
+
+def _teams(offsets, n_edges, k):
+    """The kernel's teams that run a task, in grid order, decoded from
+    `segment_tasks` as the kernel decodes them: (segment, task j, begin,
+    end, partial row), the row None where the segment is one task and its
+    team writes the output row."""
+    task_end = segment_tasks(offsets, k).numpy()
+    offsets = offsets.numpy()
+    n_chunks, n = 2 * -(-n_edges // k), len(offsets) - 1
+    teams = []
+    for team in range(n_chunks + n if n else 0):  # no segments: no launch
+        if team >= n_chunks:  # a segment: its one task, unless it is long
+            seg = team - n_chunks
+            if offsets[seg + 1] - offsets[seg] <= k:
+                teams.append((seg, 0, int(offsets[seg]), int(offsets[seg + 1]), None))
+            continue
+        if team >= task_end[-1]:  # a chunk team past the last task
+            continue
+        seg = int(np.searchsorted(task_end, team, side="right"))  # the kernel's binary search
+        b, e = int(offsets[seg]), int(offsets[seg + 1])
+        j = team - (int(task_end[seg]) - -(-(e - b) // k))
+        begin = b + j * k
+        teams.append((seg, j, begin, min(begin + k, e), team))
+    return teams
+
+
+def _two_passes(vals, order, offsets, k):
+    """The kernel's schedule in float32: every team sums its edges (a partial
+    row when its segment has several tasks), then each such segment sums its
+    partial rows in task order. Rows never written stay NaN."""
+    n, D = offsets.numel() - 1, vals.shape[1]
+    out = np.full((n, D), np.nan, np.float32)
+    partial = np.full((2 * -(-vals.shape[0] // k), D), np.nan, np.float32)
+    rows = {}
+    for seg, j, begin, end, row in _teams(offsets, vals.shape[0], k):
+        s = np.add.reduce(vals[order[begin:end]], axis=0, dtype=np.float32)
+        if row is None:
+            out[seg] = s
+        else:
+            partial[row] = s
+            rows.setdefault(seg, {})[j] = row
+    for seg, by_task in rows.items():
+        acc = np.zeros(D, np.float32)
+        for j in range(len(by_task)):
+            acc = acc + partial[by_task[j]]
+        out[seg] = acc
+    return out
+
+
+@settings(max_examples=30, deadline=None, database=None)
+@given(st.lists(st.integers(0, 7), min_size=0, max_size=12), st.integers(0, 2),
+       st.integers(0, 3000), st.integers(0, 10**6))
+def test_task_table_covers_every_kept_edge_once(picks, k_pick, n_dropped, seed):
+    """Each kept edge in exactly one task; a segment's tasks contiguous and in
+    order; no task over k edges; an empty segment one task of no edges (its
+    zero row); at most N + ceil(E / k) tasks; partial rows distinct, within
+    the workspace's 2 ceil(E / k)."""
+    k = (TASK_EDGES, 7, 1)[k_pick]
+    lengths = _lengths(picks, k, seed)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)]))
+    n, kept = len(lengths), int(offsets[-1])
+    E = kept + n_dropped
+    teams = _teams(offsets, E, k)
+    assert len(teams) <= n + -(-E // k)
+    hits = np.zeros(E, np.int64)
+    by_seg = {}
+    for seg, j, begin, end, row in teams:
+        assert 0 <= end - begin <= k
+        hits[begin:end] += 1
+        by_seg.setdefault(seg, []).append((j, begin, end, row))
+    assert (hits[:kept] == 1).all() and (hits[kept:] == 0).all()
+    partial_rows = [row for *_, row in teams if row is not None]
+    assert len(set(partial_rows)) == len(partial_rows)
+    assert all(0 <= r < 2 * -(-E // k) for r in partial_rows)
+    assert sorted(by_seg) == list(range(n))
+    for seg, tasks in by_seg.items():
+        tasks.sort()
+        L = lengths[seg]
+        assert [j for j, *_ in tasks] == list(range(max(1, -(-L // k))))
+        assert tasks[0][1] == offsets[seg] and tasks[-1][2] == offsets[seg + 1]
+        assert all(a[2] == b[1] for a, b in zip(tasks, tasks[1:]))
+        if L <= k:  # one task, which writes the output row (zeros if empty)
+            assert tasks[0][3] is None
+        else:       # partial rows in task order, one after another
+            assert [r for *_, r in tasks] == list(range(tasks[0][3], tasks[0][3] + len(tasks)))
+
+
+@settings(max_examples=20, deadline=None, database=None)
+@given(st.lists(st.integers(0, 7), min_size=1, max_size=8), st.integers(0, 1),
+       st.integers(1, 4), st.integers(0, 10**6))
+def test_two_passes_over_the_task_table_match_the_plain_sum(picks, k_pick, D, seed):
+    """The emulated schedule, on ids in any order with some dropped, is
+    within chip_smoke.py's seg_tol of the float64 plain sum, writes every
+    output row, and gives the same bits on a second call."""
+    k = (TASK_EDGES, 7)[k_pick]
+    lengths = _lengths(picks, k, seed)
+    rng = np.random.default_rng(seed)
+    n = len(lengths)
+    ids = np.concatenate([np.repeat(np.arange(n), lengths),
+                          rng.choice([-1, n, n + 3], size=int(rng.integers(0, 50)))])
+    rng.shuffle(ids)
+    vals = rng.standard_normal((len(ids), D)).astype(np.float32)
+    seg = torch.from_numpy(ids.astype(np.int32))
+    order, offsets = segment_order(seg, n)
+    got = _two_passes(vals, order.numpy(), offsets, k)
+    v64 = torch.from_numpy(vals).double()
+    exact = ref.segment_sum_ref(v64, seg, n).numpy()
+    tol = SEG_REL * ref.segment_sum_ref(v64.abs(), seg, n).numpy() + SEG_ABS
+    assert not np.isnan(got).any()
+    assert (np.abs(got - exact) <= tol).all()
+    np.testing.assert_array_equal(got, _two_passes(vals, order.numpy(), offsets, k))
+
+
+def test_task_table_of_one_segment_per_length():
+    """Segments of 0, k - 1, k, k + 1, 2k, 2k + 1 and 10k edges: only those
+    over k edges have tasks in the table, ceil(L / k) each."""
+    k = TASK_EDGES
+    lengths = [0, k - 1, k, k + 1, 2 * k, 2 * k + 1, 10 * k]
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]))
+    assert segment_tasks(offsets).tolist() == np.cumsum([0, 0, 0, 2, 2, 3, 10]).tolist()
+    assert segment_tasks(torch.zeros(1, dtype=torch.int64)).numel() == 0
 
 
 # ---------------------------------------------------------------------------
