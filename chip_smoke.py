@@ -5,14 +5,20 @@
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
 
   1. holds each kernel against its plain PyTorch version on the card
-     (the frontier kernels at the serving shapes, the flash-attention
-     kernel at the Qwen3-4B prefill shape, a Gemma2-like local layer and
-     small, ragged and fully masked cases in both dtypes, each shape
-     profiled to show its route: bf16 on the tensor cores, float32 on
-     the CUDA cores), with times and bounds;
+     (the frontier kernels at a synthetic hop of the serving shape, at
+     edge shapes and at a hop whose offsets need 64-bit indices, timed
+     beside an all-padding hop, their floor; the
+     flash-attention kernel at the Qwen3-4B prefill shape, a Gemma2-like
+     local layer and small, ragged and fully masked cases in both dtypes,
+     each shape profiled to show its route: bf16 on the tensor cores,
+     float32 on the CUDA cores), with times and bounds;
   2. serves the 262,144-node power-law preset end to end through
      `ServingEngine` (hash and landmark routing, dense and packed visited
      sets), checks the launch counts and the results, and profiles it;
+     then runs each landmark cell once more with every frontier launch's
+     inputs recorded (live rows and entries, targets, bound), sums them
+     against the profile, and replays a sample of the launches: bit-equal
+     to the plain version and to a second launch, no host sync, timed;
   3. replays an oversubscribed run with a colliding cache on the card and
      on the CPU, field by field;
   4. serves Qwen3-4B at full width in bf16 (random weights from a seed):
@@ -66,6 +72,10 @@ EDGE_SHAPES = [  # word seams, F not a multiple of 128, tiny
     dict(B=3, F=5, W=7, n=33), dict(B=2, F=130, W=9, n=34),
     dict(B=4, F=17, W=3, n=142), dict(B=1, F=1, W=1, n=1),
 ]
+# a hop a layout whose offsets take frontier.cu's 64-bit indices: B*n bytes
+# of the dense set (2 GB) or n bits of the packed one past INT_MAX
+WIDE_SHAPES = {"frontier_expand_batched": dict(B=2, F=64, W=8, n=2**30 + 3),
+               "frontier_expand_packed": dict(B=1, F=64, W=8, n=2**31 + 33)}
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device symbol, source)
     "frontier_expand_batched": ("frontier_expand_batched_ref",
@@ -211,16 +221,6 @@ def kernel_inputs(B, F, W, n, device, seed=0):
     return rows.to(device), deg.to(device), vis.to(device)
 
 
-def call(kind, fr, ref, rows, deg, vis, n, kernel: bool):
-    """Run the kernel or its plain version on a fresh copy of the visited set."""
-    if kind == "frontier_expand_batched":
-        fn = fr.frontier_expand_batched if kernel else ref.frontier_expand_batched_ref
-        return fn(rows, deg, vis.clone())
-    words = fr.pack_words(vis)
-    fn = fr.frontier_expand_packed if kernel else ref.frontier_expand_packed_ref
-    return fn(rows, deg, words, n)
-
-
 def median_ms(fn, reps: int = 30) -> float:
     """Median over `reps` launches, each timed with CUDA events (after warm-up)."""
     for _ in range(3):
@@ -244,14 +244,19 @@ def device_ops(fn, want=None):
     event of a profile, so when `want` is given and no op name holds it,
     `fn()` is profiled again, up to PROFILE_TRIES times in all."""
     for tries in range(1, PROFILE_TRIES + 1):
-        by_name = _device_ops(fn)
+        by_name = {}
+        for name, _, us in _device_events(fn):
+            t, calls = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + us, calls + 1)
         if want is None or any(want in name for name in by_name):
             break
         log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no {want}")
     return by_name
 
 
-def _device_ops(fn):
+def _device_events(fn):
+    """[(name, start us, duration us)] of the device ops of one `fn()`, in
+    the order they ran, the leading pad kernels left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,75 +266,169 @@ def _device_ops(fn):
             torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
-    by_name, pads = {}, 0
+    events, pads = [], 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             if "spin_kernel" in e.name:
                 pads += 1
                 continue
-            us, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+            events.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
     if pads < PROFILE_PAD:
         log(f"[profile] the trace kept {pads} of {PROFILE_PAD} leading pad kernels")
-    return by_name
+    return sorted(events, key=lambda e: e[1])
 
 
-def bound_ms(kind, rows, deg, vis) -> float:
-    """Least time at the HBM rate for the in-place update on these inputs:
-    deg read once and the row entries below each row's degree read once
-    (entries past it need not be read); then the visited state the update
-    must touch. Dense writes one byte per distinct in-range target and need
-    not read the set; packed reads and writes each distinct word that takes
-    a bit (the merge into a word is a read-modify-write)."""
+def launch_ms(fns, symbol=None, reps=20):
+    """The median device time (ms) of one call of each of `fns`: all run
+    `reps` times in turn under one profile, and a call's time is the sum of
+    its device ops' times, in launch order (the kernel `symbol`'s alone
+    when given). A kernel of a few microseconds is below what CUDA events
+    around its launch can see (they time the host's launch path), so its
+    own device time is read from the trace; a plain version, several ops a
+    call, is read the same way. Without `symbol`, every fn must launch as
+    many ops a call as the first does in a profile of its own. Profiled
+    again, up to PROFILE_TRIES times, while the trace holds another number
+    of events."""
+    def run():
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+
+    for fn in fns:  # warm-up
+        fn()
+    for tries in range(1, PROFILE_TRIES + 1):
+        per_call = 1 if symbol else len(_device_events(fns[0]))
+        times = [us for name, _, us in _device_events(run) if symbol is None or symbol in name]
+        if per_call and len(times) == per_call * reps * len(fns):
+            calls = np.add.reduceat(times, range(0, len(times), per_call))
+            return [float(np.median(calls[i * reps:(i + 1) * reps])) / 1e3
+                    for i in range(len(fns))]
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: {len(times)} {symbol or 'device'} "
+            f"events for {reps * len(fns)} calls of {per_call}")
+    raise AssertionError(f"no complete trace of {symbol or fns[0]} in {PROFILE_TRIES} profiles")
+
+
+def hop_figures(kind, rows, deg, n) -> dict:
+    """What one hop's inputs ask of the kernel: live rows (deg > 0), live
+    entries (w < deg), the in-range targets among them (0 <= id < n), the
+    distinct targets (dense) or words (packed) those touch, and `bound_ms`,
+    the least time at the HBM rate for the in-place update: deg read once
+    and the live entries read once (entries past a row's degree need not
+    be read); then the visited state the update must touch. Dense writes
+    one byte per distinct target and need not read the set; packed reads
+    and writes each distinct word that takes a bit (the merge into a word
+    is a read-modify-write)."""
     B, F, W = rows.shape
-    n = vis.shape[1]
     live = torch.arange(W, device=rows.device) < deg.unsqueeze(-1)
     ids = rows.long()
     hit = live & (ids >= 0) & (ids < n)
-    b = torch.arange(B, device=rows.device).view(B, 1, 1).expand_as(ids)
+    b = torch.arange(B, device=rows.device).view(B, 1, 1)
     if kind == "frontier_expand_batched":
-        vis_bytes = torch.unique((b * n + ids)[hit]).numel()
+        distinct = torch.unique((b * n + ids)[hit]).numel()
+        vis_bytes = distinct
     else:
-        nw = -(-n // 32)
-        vis_bytes = 2 * 4 * torch.unique((b * nw + (ids >> 5))[hit]).numel()
-    return (4 * B * F + 4 * int(live.sum()) + vis_bytes) / HBM_BYTES_PER_S * 1e3
+        distinct = torch.unique((b * -(-n // 32) + (ids >> 5))[hit]).numel()
+        vis_bytes = 2 * 4 * distinct
+    entries = int(live.sum())
+    return dict(live_rows=int((deg > 0).sum()), live_entries=entries,
+                in_range=int(hit.sum()), distinct=distinct,
+                bound_ms=(4 * B * F + 4 * entries + vis_bytes) / HBM_BYTES_PER_S * 1e3)
 
 
-def check_kernels(device):
+def in_place(kind, rows, deg, vis, n, kernel=True):
+    """A call of the kernel's wrapper, or of its plain version, that
+    updates `vis` in place (to time)."""
     from repro_torch.kernels import frontier as fr
     from repro_torch.kernels import ref
 
-    rows_out = {}
-    for kind in KERNELS_BY_LAYOUT.values():
-        max_err = 0
+    if kind == "frontier_expand_batched":
+        fn = fr.frontier_expand_batched if kernel else ref.frontier_expand_batched_ref
+        return lambda: fn(rows, deg, vis)
+    fn = fr.frontier_expand_packed if kernel else ref.frontier_expand_packed_ref
+    return lambda: fn(rows, deg, vis, n)
+
+
+def max_err(out_k, out_p, what) -> int:
+    """0 when two visited sets are bit-equal; else raises with their
+    largest difference (as integers)."""
+    if torch.equal(out_k, out_p):
+        return 0
+    diff = out_k != out_p
+    err = int((out_k[diff].long() - out_p[diff].long()).abs().max())
+    raise AssertionError(f"{what} (max err {err})")
+
+
+def wide_inputs(kind, B, F, W, n, device, seed=0):
+    """A hop at WIDE_SHAPES, made on the card: ids in [-1, n + 4) (int32),
+    the first rows full and ending in the highest id in range, and a
+    visited set, in the kernel's layout, with every 4,099th node (dense)
+    or a bit pattern in every third word (packed) set."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.randint(-1, min(n + 4, 2**31), (B, F, W), generator=g).to(torch.int32)
+    deg = torch.randint(0, W + 1, (B, F), generator=g, dtype=torch.int32)
+    rows[:, :4, -1] = min(n, 2**31) - 1
+    deg[:, :4] = W
+    if kind == "frontier_expand_batched":
+        vis = torch.zeros((B, n), dtype=torch.bool, device=device)
+        vis[:, ::4099] = True
+    else:
+        vis = torch.zeros((B, -(-n // 32)), dtype=torch.int32, device=device)
+        vis[:, ::3] = 0x01010101
+    return rows.to(device), deg.to(device), vis
+
+
+def expand(kind, rows, deg, vis, n, kernel: bool):
+    """The kernel or its plain version on a copy of the visited set `vis`,
+    already in the kernel's layout."""
+    return in_place(kind, rows, deg, vis.clone(), n, kernel)()
+
+
+def check_kernels(device):
+    """Both frontier kernels bit-equal to their plain versions at
+    MAIN_SHAPES (a synthetic hop: 75 % live rows), EDGE_SHAPES and
+    WIDE_SHAPES (the kernels' 64-bit indices); their device time on the
+    synthetic hop and on an all-padding hop at the path's shape (every deg
+    0: reading deg and exiting, the kernel's own floor on that shape),
+    beside the plain version's device time and the bound."""
+    from repro_torch.kernels import frontier as fr
+
+    out = {}
+    n = MAIN_SHAPES["n"]
+    for layout, kind in KERNELS_BY_LAYOUT.items():
+        err = 0
         for shapes in [MAIN_SHAPES] + EDGE_SHAPES:
             rows, deg, vis = kernel_inputs(**shapes, device=device)
-            n = shapes["n"]
-            out_k = call(kind, fr, ref, rows, deg, vis, n, kernel=True)
+            if layout == "packed":
+                vis = fr.pack_words(vis)
+            out_k = expand(kind, rows, deg, vis, shapes["n"], kernel=True)
             torch.cuda.synchronize()
-            out_p = call(kind, fr, ref, rows, deg, vis, n, kernel=False)
-            err = int((out_k.long() - out_p.long()).abs().max()) if out_k.numel() else 0
-            if not torch.equal(out_k, out_p):
-                raise AssertionError(f"{kind} != plain version at {shapes} (max err {err})")
-            max_err = max(max_err, err)
+            err = max(err, max_err(out_k, expand(kind, rows, deg, vis, shapes["n"], kernel=False),
+                                   f"{kind} != plain version at {shapes}"))
+        wide = WIDE_SHAPES[kind]
+        rows, deg, vis = wide_inputs(kind, **wide, device=device)
+        out_k = expand(kind, rows, deg, vis, wide["n"], kernel=True)
+        err = max(err, max_err(out_k, expand(kind, rows, deg, vis, wide["n"], kernel=False),
+                               f"{kind} != plain version at {wide} (64-bit indices)"))
+        del rows, deg, vis, out_k
+        torch.cuda.empty_cache()
         rows, deg, vis = kernel_inputs(**MAIN_SHAPES, device=device)
-        n = MAIN_SHAPES["n"]
-        words = fr.pack_words(vis)
-        if kind == "frontier_expand_batched":
-            k_ms = median_ms(lambda: fr.frontier_expand_batched(rows, deg, vis))
-            p_ms = median_ms(lambda: ref.frontier_expand_batched_ref(rows, deg, vis))
-        else:
-            k_ms = median_ms(lambda: fr.frontier_expand_packed(rows, deg, words, n))
-            p_ms = median_ms(lambda: ref.frontier_expand_packed_ref(rows, deg, words, n))
-        b_ms = bound_ms(kind, rows, deg, vis)
-        rows_out[kind] = dict(name=kind, route="cuda", source=KERNELS[kind][3],
-                              replaces=KERNELS[kind][1], launches=0,
-                              max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by="bytes", library_ms=None)
-        log(f"[kernel] {kind}: exact vs {KERNELS[kind][0]} at {MAIN_SHAPES} and "
-            f"{len(EDGE_SHAPES)} edge shapes; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {b_ms * 1e3:.2f} us (bytes / 3.35 TB/s)")
-    return rows_out
+        pad_rows, pad_deg = torch.full_like(rows, -1), torch.zeros_like(deg)
+        if layout == "packed":
+            vis = fr.pack_words(vis)
+        k_ms, floor_ms = launch_ms([in_place(kind, rows, deg, vis, n),
+                                    in_place(kind, pad_rows, pad_deg, vis, n)], KERNELS[kind][2])
+        p_ms = launch_ms([in_place(kind, rows, deg, vis, n, kernel=False)], reps=10)[0]
+        fig = hop_figures(kind, rows, deg, n)
+        floor_bound = hop_figures(kind, pad_rows, pad_deg, n)["bound_ms"]
+        out[kind] = dict(max_abs_err=err, synthetic_ms=k_ms, synthetic_plain_ms=p_ms,
+                         synthetic_bound_ms=fig["bound_ms"], floor_ms=floor_ms,
+                         floor_bound_ms=floor_bound)
+        log(f"[kernel] {kind}: exact vs {KERNELS[kind][0]} at {MAIN_SHAPES}, "
+            f"{len(EDGE_SHAPES)} edge shapes and {wide} (64-bit indices); synthetic hop "
+            f"{k_ms * 1e3:.2f} us (device time), plain {p_ms:.4f} ms (device time), bound "
+            f"{fig['bound_ms'] * 1e3:.3f} us; all-padding "
+            f"hop (the floor) {floor_ms * 1e3:.2f} us, bound {floor_bound * 1e3:.3f} us")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -362,15 +461,15 @@ def assert_same_result(a, b, what):
             raise AssertionError(f"{what}: {f.name} {x} != {y}")
 
 
-def main_path(device, preset="large", n_queries=128, n_landmarks=24):
-    """Phase 2: the repo's scale run (benchmarks/bench_engine.py _scale_bench
-    settings, cut from 256 to 128 queries to leave the LM phases their time)
-    with the kernels, against the same runs on the scatter backend."""
+def path_setup(device, preset="large", n_queries=128, n_landmarks=24):
+    """The main path's graph, storage tier, landmark index, workload and
+    engine settings: the repo's scale run (benchmarks/bench_engine.py
+    _scale_bench settings, cut from 256 to 128 queries to leave the LM
+    phases their time)."""
     from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.storage import build_storage
     from repro_torch.core.workloads import preset_workload
     from repro_torch.graph.csr import to_padded
-    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.serve.engine import EngineRunConfig
 
     t = time.perf_counter()
@@ -388,6 +487,17 @@ def main_path(device, preset="large", n_queries=128, n_landmarks=24):
     base = EngineRunConfig(
         n_processors=4, round_size=16, capacity=16, hops=2, max_frontier=4096,
         cache_sets=4096, cache_ways=8, chain_depth=64, expand_backend="cuda")
+    return tier, li, wl, base
+
+
+def main_path(device, **setup):
+    """Phase 2: the scale run (`path_setup`) with the kernels, against the
+    same runs on the scatter backend; a profile of each landmark cell; then
+    one more run of each, recorded (`record_path`), whose launches are
+    summed up against the profile and replayed (`check_path_launches`)."""
+    from repro_torch.kernels.build import LAUNCHES
+
+    tier, li, wl, base = path_setup(device, **setup)
     launches = {k: 0 for k in KERNELS_BY_LAYOUT.values()}
     cells = []
     for scheme in ("hash", "landmark"):
@@ -425,7 +535,156 @@ def main_path(device, preset="large", n_queries=128, n_landmarks=24):
             raise AssertionError(f"{scheme}: counts/reads differ across layouts")
     profiles = [profile_cell(tier, li, wl, base, "landmark", layout, device)
                 for layout in ("dense", "packed")]
-    return launches, cells, profiles
+    path = {}
+    for prof in profiles:
+        kind = prof["kernel"]
+        cell = next(c for c in cells if c["scheme"] == "landmark" and
+                    KERNELS_BY_LAYOUT[c["layout"]] == kind)
+        figures, replay = record_path(tier, li, wl, base, "landmark", prof["layout"], device)
+        if len(figures) != cell["launches"]:
+            raise AssertionError(f"recorded run of landmark/{prof['layout']}: "
+                                 f"{len(figures)} launches, the cell {cell['launches']}")
+        path[kind] = dict(recorded=summarize_path(kind, figures, prof),
+                          replayed=check_path_launches(kind, replay))
+    return launches, cells, profiles, path
+
+
+# replayed launches of each kind a layout (link 0 of a hop, a later link),
+# besides the launch with the most live entries
+REPLAY_LAUNCHES = 8
+FIGURES = ("live_rows", "live_entries", "in_range", "distinct", "bound_ms")
+
+
+class Spread:
+    """Keeps every `stride`-th item offered; when more than 2 * want are
+    kept, every other one goes and the stride doubles. So the kept items
+    spread evenly over a run of unknown length, in bounded memory."""
+
+    def __init__(self, want: int):
+        self.want, self.stride, self.seen, self.kept = want, 1, 0, []
+
+    def offer(self, make):
+        if self.seen % self.stride == 0:
+            self.kept.append(make())
+            if len(self.kept) > 2 * self.want:
+                self.kept, self.stride = self.kept[::2], 2 * self.stride
+        self.seen += 1
+
+    def pick(self) -> list:
+        idx = np.linspace(0, len(self.kept) - 1, min(self.want, len(self.kept)))
+        return [self.kept[i] for i in np.unique(idx.round().astype(int))]
+
+
+def record_path(tier, li, wl, base, scheme, layout, device):
+    """One more run of a main-path cell, unprofiled and untimed, with the
+    layout's kernel wrapper in `repro_torch.core.visited` (the seam
+    `expander` reads at call time) wrapped: `hop_figures` of every
+    launch's inputs, in launch order, and clones of the inputs of
+    REPLAY_LAUNCHES launches of each kind spread over the run. Every link
+    of a hop updates one visited tensor in place, so a launch whose tensor
+    is not the last launch's is the first link of a hop. The launch with
+    the most live entries is kept too. The wrapper is restored after the
+    run."""
+    from repro_torch.core import visited as seam
+
+    kind = KERNELS_BY_LAYOUT[layout]
+    wrapped = getattr(seam, kind)
+    figures, last, largest = [], [None], [None]
+    spread = {True: Spread(REPLAY_LAUNCHES), False: Spread(REPLAY_LAUNCHES)}
+
+    def recorder(rows, deg, vis, *n):
+        first = vis is not last[0]
+        last[0] = vis
+        bits = n[0] if n else vis.shape[1]
+        fig = dict(hop_figures(kind, rows, deg, bits), first_link=first, index=len(figures))
+        figures.append(fig)
+
+        def clone():
+            return dict(fig, rows=rows.clone(), deg=deg.clone(), vis=vis.clone(), n=bits)
+
+        spread[first].offer(clone)
+        if largest[0] is None or fig["live_entries"] > largest[0]["live_entries"]:
+            largest[0] = clone()
+        return wrapped(rows, deg, vis, *n)
+
+    setattr(seam, kind, recorder)
+    try:
+        res, _ = make_engine(tier, li, scheme, dataclasses.replace(
+            base, visited_layout=layout), device).run(wl)
+    finally:
+        setattr(seam, kind, wrapped)
+    if not res.completed.all():
+        raise AssertionError(f"recorded run of {scheme}/{layout}: not every query completed")
+    replay = spread[True].pick() + spread[False].pick()
+    if all(r["index"] != largest[0]["index"] for r in replay):
+        replay.append(largest[0])
+    return figures, replay
+
+
+def summarize_path(kind, figures, prof) -> dict:
+    """Each figure of the recorded launches summed and per launch (median,
+    largest), by kind of link and over all; the bounds' total against the
+    kernel's profiled total on the same cell."""
+    out = {}
+    for what, keep in (("all", None), ("first links", True), ("later links", False)):
+        sel = [f for f in figures if keep is None or f["first_link"] == keep]
+        out[what] = dict(launches=len(sel), **{
+            k: dict(median=float(np.median([f[k] for f in sel])) if sel else None,
+                    max=max((f[k] for f in sel), default=None),
+                    total=sum(f[k] for f in sel)) for k in FIGURES})
+    total = out["all"]["bound_ms"]["total"]
+    out["profiled_ms"], out["profiled_per_launch_ms"] = prof["kernel_ms"], prof["kernel_ms_per_launch"]
+    log(f"[path] {kind} on landmark/{prof['layout']}: {len(figures)} launches, "
+        f"{out['first links']['launches']} first links of a hop; per launch (median / "
+        f"largest / total):")
+    for what in ("all", "first links", "later links"):
+        log(f"[path]   {what:>11s}: " + "; ".join(
+            f"{k} {out[what][k]['median']:.6g} / {out[what][k]['max']:.6g} / "
+            f"{out[what][k]['total']:.6g}" for k in FIGURES if out[what]["launches"]))
+    log(f"[path]   bound {total:.4f} ms in all against the kernel's profiled "
+        f"{prof['kernel_ms']:.4f} ms ({prof['kernel_ms'] / total:.1f}x); a launch "
+        f"{out['all']['bound_ms']['median'] * 1e3:.3f} us bound (median), "
+        f"{prof['kernel_ms_per_launch'] * 1e3:.3f} us profiled (mean)")
+    return out
+
+
+def check_path_launches(kind, replay) -> dict:
+    """The recorded launches replayed: the kernel bit-equal to its plain
+    version and to a second launch of itself on each; one launch under
+    `torch.cuda.set_sync_debug_mode("error")` (no host sync); the kernel's
+    device time (median of 20 launches each, one profile) beside the plain
+    version's (device time, median of 10 calls each, one profile) and the
+    bound."""
+    err = 0
+    for rec in replay:
+        args = (kind, rec["rows"], rec["deg"], rec["vis"], rec["n"])
+        out_k = expand(*args, kernel=True)
+        err = max(err, max_err(out_k, expand(*args, kernel=False),
+                               f"{kind} != plain version on recorded launch {rec['index']}"))
+        if not torch.equal(out_k, expand(*args, kernel=True)):
+            raise AssertionError(f"{kind}: two launches differ on recorded launch {rec['index']}")
+    fns = [in_place(kind, r["rows"], r["deg"], r["vis"].clone(), r["n"]) for r in replay]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fns[0]()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    k_ms = launch_ms(fns, KERNELS[kind][2])
+    p_ms = launch_ms([in_place(kind, r["rows"], r["deg"], r["vis"].clone(), r["n"], kernel=False)
+                      for r in replay], reps=10)
+    launches = [dict(index=r["index"], first_link=r["first_link"], ms=k, plain_ms=p,
+                     **{k2: r[k2] for k2 in FIGURES}) for r, k, p in zip(replay, k_ms, p_ms)]
+    for x in launches:
+        log(f"[path] {kind} launch {x['index']:5d} ({'first' if x['first_link'] else 'later'} "
+            f"link): {x['live_rows']} live rows, {x['live_entries']} entries, "
+            f"{x['distinct']} distinct; kernel {x['ms'] * 1e3:.2f} us, bound "
+            f"{x['bound_ms'] * 1e3:.3f} us, plain {x['plain_ms']:.4f} ms")
+    log(f"[path] {kind}: {len(replay)} recorded launches replayed, each bit-equal to the "
+        f"plain version and to a second launch; a launch makes no host sync")
+    return dict(launches=launches, max_abs_err=err, ms=float(np.median(k_ms)),
+                plain_ms=float(np.median(p_ms)),
+                bound_ms=float(np.median([r["bound_ms"] for r in replay])))
 
 
 def profile_cell(tier, li, wl, base, scheme, layout, device):
@@ -1420,14 +1679,25 @@ def main() -> int:
     def phase_done(name):
         log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
 
-    kernels = check_kernels(device)
+    kernels = dict.fromkeys(KERNELS)  # the kernel line's order
+    frontier = check_kernels(device)
     kernels["flash_attention"], flash_shapes, flash_leak = check_flash(device)
     seg_err = check_segment_grid(device)
     bag_err = check_bag_grid(device)
     phase_done("kernel checks")
-    launches, cells, profiles = main_path(device)
+    launches, cells, profiles, path = main_path(device)
     for k, v in launches.items():
-        kernels[k]["launches"] = v
+        # the kernel line: the synthetic hop (MAIN_SHAPES), on the profile's
+        # clock; the path's replayed launches are on the frontier line
+        kernels[k] = dict(name=k, route="cuda", source=KERNELS[k][3], replaces=KERNELS[k][1],
+                          launches=v,
+                          max_abs_err=max(frontier[k]["max_abs_err"],
+                                          path[k]["replayed"]["max_abs_err"]),
+                          ms=frontier[k]["synthetic_ms"], plain_ms=frontier[k]["synthetic_plain_ms"],
+                          bound_ms=frontier[k]["synthetic_bound_ms"], bound_by="bytes",
+                          library_ms=None, input="synthetic hop (MAIN_SHAPES)",
+                          clock="device time from torch.profiler")
+        frontier[k].update(path[k])
         rounds = sum(c["rounds"] for c in cells if KERNELS_BY_LAYOUT[c["layout"]] == k)
         log(f"[kernel] {k}: {v} launches on the main path, {v / rounds:.1f} per "
             f"engine round of 4 processors")
@@ -1448,7 +1718,7 @@ def main() -> int:
     cpu = gnn_din_card_vs_cpu(device)
     phase_done("GNN and DIN card vs CPU")
 
-    log(json.dumps({"cells": cells, "profiles": profiles}))
+    log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))
     log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
     log(json.dumps({"gnn": gnn, "din": din, "card_vs_cpu": cpu}))
     log(smi)

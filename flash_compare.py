@@ -1,5 +1,5 @@
-"""This tree's flash-attention or segment-sum kernel against other sources
-of it, timed on one GPU in turns.
+"""This tree's flash-attention, segment-sum or frontier kernels against
+other sources of them, timed on one GPU in turns.
 
     mkdir -p build/other
     git archive <rev> src/repro_torch/kernels/csrc/flash_attention.cu | tar -x -C build/other
@@ -8,27 +8,35 @@ of it, timed on one GPU in turns.
     git archive <rev> src/repro_torch/kernels/csrc/segment_sum.cu | tar -x -C build/other
     python3 flash_compare.py --segment build/other/src/repro_torch/kernels/csrc/segment_sum.cu
 
-Flash attention: builds the port's kernels twice, as they are and with
-the other flash source in place of this one (`kernels.build`, both builds
-together), then at every bf16 shape of `chip_smoke.py`'s ATTN_SHAPES and
-at one prefill launch of its Qwen3-4B phase (4 requests) times other,
-this, this, other (median of CUDA events each), both launched through the
-wrapper's own arguments (`flash_attention.fwd_args`), beside SDPA where it
-computes the same function and the bound. The other source must export
-`flash_attention_fwd` with the C signature `kernels/build.py` declares.
+    git archive <rev> src/repro_torch/kernels/csrc/frontier.cu | tar -x -C build/other
+    python3 flash_compare.py --frontier build/other/src/repro_torch/kernels/csrc/frontier.cu
 
-Segment sum (`--segment`, one or more other sources): builds
-`segment_sum.cu` alone from each other source (all together) and the
-port's kernels as they are, then at phase 6's ogb_products shape
-(`chip_smoke.py` GNN_SHAPE, `synthetic_edges` from seed 0) at width 75
-and at width 1 (a mean's count: ones), and at the hub-only shape (one
-segment of HUB_EDGES edges, widths 75 and 1, its rows read in order and
-in a random order), times the others, this, this, the others in reverse
-(median of CUDA events each). This tree's kernel runs through
-`segment_reduce._launch_csr` (its task table and workspace); the others
-must export `segment_sum` with the signature before the task table
-(values, order, offsets, out, dtype, N, D, stream; the source at
-d96de4d), which takes no workspace.
+Each other source is built in a copy of the port's sources, in place of
+this tree's file of the same name (`kernels.build`, all builds together),
+so it must export the C entry points with the signatures `kernels/build.py`
+declares. It runs through the same wrapper as this tree's kernel.
+
+Flash attention: at every bf16 shape of `chip_smoke.py`'s ATTN_SHAPES and
+at one prefill launch of its Qwen3-4B phase (4 requests), times other,
+this, this, other (median of CUDA events each), beside SDPA where it
+computes the same function and the bound.
+
+Segment sum (`--segment`, one or more other sources): at phase 6's
+ogb_products shape (`chip_smoke.py` GNN_SHAPE, `synthetic_edges` from seed
+0) at width 75 and at width 1 (a mean's count: ones), and at the hub-only
+shape (one segment of HUB_EDGES edges, widths 75 and 1, its rows read in
+order and in a random order), times the others, this, this, the others in
+reverse (median of CUDA events each), all through
+`segment_reduce._launch_csr`.
+
+Frontier (`--frontier`, one or more other sources): both layouts, on the
+main path's own launches (`chip_smoke.py` `record_path`: the landmark cell
+of phase 2 run once with its launches recorded, and the recorded launches
+replayed), an all-padding hop at the path's shape and the synthetic hop
+(MAIN_SHAPES); every source bit-equal to the plain version on each, then
+the others, this, this, the others in reverse, each turn one profile of 20
+launches an input (`chip_smoke.launch_ms`: the kernels take microseconds,
+below what CUDA events see).
 
 One JSON line a shape, then the card's name and power limit. Needs a CUDA
 device; imports no JAX.
@@ -37,7 +45,7 @@ device; imports no JAX.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import shutil
 import sys
@@ -50,23 +58,46 @@ import torch
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
-CSRC_SEGMENT = "src/repro_torch/kernels/csrc/segment_sum.cu"
 PREFILL_LAUNCH = ("qwen3-4b prefill launch, 4 requests", 4, 32, 8, 4096, 4096, 128, True,
                   None, None, torch.bfloat16)
 
 
-def load(other: Path) -> dict:
-    """{"other": library, "this": library}: the port's sources with `other`
-    as the flash source, and as they are."""
+def load_variants(name: str, sources: list) -> list:
+    """One library a source: the port's sources with that source as `name`,
+    all built together."""
     from repro_torch.kernels.build import CSRC, build, load_library
 
-    csrc = ROOT / "build" / "compare" / "csrc"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(CSRC, csrc)
-    shutil.copyfile(other, csrc / "flash_attention.cu")
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(build, (csrc, CSRC)))
-    return {"other": load_library(csrc), "this": load_library(CSRC)}
+    dirs = []
+    for i, src in enumerate(sources):
+        d = ROOT / "build" / "compare" / f"{Path(name).stem}{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(CSRC, d)
+        shutil.copyfile(src, d / name)
+        dirs.append(d)
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        list(pool.map(build, dirs + [CSRC]))
+    return [load_library(d) for d in dirs]
+
+
+@contextlib.contextmanager
+def using(lib):
+    """The kernel wrappers launch from `lib` (this tree's when None)."""
+    from repro_torch.kernels import frontier, segment_reduce
+
+    if lib is None:
+        yield
+        return
+    saved = frontier.load_library, segment_reduce.load_library
+    frontier.load_library = segment_reduce.load_library = lambda: lib
+    try:
+        yield
+    finally:
+        frontier.load_library, segment_reduce.load_library = saved
+
+
+def turns(names: list) -> list:
+    """The others, this, this, the others in reverse (`names` ends in this)."""
+    return names[:-1] + [names[-1]] * 2 + names[-2::-1]
 
 
 def run(lib, q, k, v, causal, window, cap):
@@ -79,54 +110,45 @@ def run(lib, q, k, v, causal, window, cap):
     return o
 
 
-# the segment-sum entry point before the task table: no workspace
-EARLIER_SEGMENT_SUM = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
+def compare_flash(other: Path, dev) -> None:
+    from repro_torch.kernels.build import load_library
 
-
-def load_segment(sources: list) -> list:
-    """One library a source, each built from that `segment_sum.cu` alone,
-    its entry point declared with the signature before the task table."""
-    from repro_torch.kernels.build import build
-
-    dirs = []
-    for i, src in enumerate(sources):
-        d = ROOT / "build" / "compare" / f"segment{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        shutil.copyfile(src, d / "segment_sum.cu")
-        dirs.append(d)
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        paths = list(pool.map(build, dirs))
-    libs = []
-    for path in paths:
-        lib = ctypes.CDLL(str(path))
-        lib.segment_sum.argtypes, lib.segment_sum.restype = EARLIER_SEGMENT_SUM, ctypes.c_int
-        libs.append(lib)
-    return libs
+    libs = {"other": load_variants("flash_attention.cu", [other])[0], "this": load_library()}
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = [s for s in cs.ATTN_SHAPES if s[-1] == torch.bfloat16] + [PREFILL_LAUNCH]
+    for name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype in shapes:
+        q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+        reps = 10 if Sq * Skv >= 2**22 else 30
+        ms = {"other": [], "this": []}
+        for n in turns(["other", "this"]):
+            ms[n].append(cs.median_ms(lambda: run(libs[n], q, k, v, causal, window, cap), reps))
+        sdpa = None
+        if window is None and cap is None:
+            sdpa = cs.median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps)
+        bound, by, _ = cs.attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
+        print(json.dumps(dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
+                              other_ms=ms["other"], this_ms=ms["this"], sdpa_ms=sdpa,
+                              bound_ms=bound, bound_by=by,
+                              speedup=float(np.mean(ms["other"]) / np.mean(ms["this"])))),
+              flush=True)
+        del q, k, v
 
 
 def run_segment(lib, values, order, offsets, n):
-    """This tree's kernel when `lib` is None, else an earlier one."""
-    from repro_torch.kernels.build import launch
-    from repro_torch.kernels.segment_reduce import _DTYPES, _launch_csr
+    from repro_torch.kernels.segment_reduce import _launch_csr
 
-    if lib is None:
+    with using(lib):
         return _launch_csr(values, order, offsets, n)
-    out = torch.empty((n, values.shape[1]), dtype=torch.float32, device=values.device)
-    launch("segment_compare", lib.segment_sum, values.device, values.data_ptr(),
-           order.data_ptr(), offsets.data_ptr(), out.data_ptr(), _DTYPES[values.dtype], n,
-           values.shape[1])
-    return out
 
 
 def compare_segment(others: list, dev) -> None:
-    from repro_torch.kernels.build import load_library
     from repro_torch.kernels.segment_reduce import segment_order
 
     names = [str(o) for o in others] + ["this"]
-    libs = dict(zip(names, load_segment(others) + [None]))
-    load_library()
+    libs = dict(zip(names, load_variants("segment_sum.cu", others) + [None]))
     N, E, D = cs.GNN_SHAPE
     g = torch.Generator(device=dev).manual_seed(0)
     dst = cs.synthetic_edges(N, E, g, dev)
@@ -144,13 +166,12 @@ def compare_segment(others: list, dev) -> None:
         v = torch.randn((cs.HUB_EDGES, width), generator=g, device=dev)
         for how, o in hub_orders:
             shapes.append((f"hub only {how} width {width}", v, o, hub_offsets, 1, cs.HUB_EDGES))
-    turns = names[:-1] + ["this", "this"] + names[-2::-1]
     for name, values, o, off, n, kept_n in shapes:
         want = run_segment(None, values, o, off, n)
         diff = {k: float((run_segment(lib, values, o, off, n) - want).abs().max())
                 for k, lib in libs.items()}
         ms = {k: [] for k in names}
-        for k in turns:
+        for k in turns(names):
             ms[k].append(cs.median_ms(lambda: run_segment(libs[k], values, o, off, n), reps=10))
         print(json.dumps(dict(shape=name, segments=n, kept_edges=kept_n,
                               width=values.shape[1], ms=ms, max_abs_diff_vs_this=diff,
@@ -159,46 +180,76 @@ def compare_segment(others: list, dev) -> None:
         del want
 
 
+def frontier_inputs(kind, replay, dev) -> list:
+    """(name, rows, deg, visited in the kernel's layout, n, figures) of the
+    recorded path launches, the all-padding hop and the synthetic hop."""
+    from repro_torch.kernels.frontier import pack_words
+
+    shapes = [(f"path launch {r['index']} ({'first' if r['first_link'] else 'later'} link)",
+               r["rows"], r["deg"], r["vis"], r["n"]) for r in replay]
+    n = cs.MAIN_SHAPES["n"]
+    rows, deg, vis = cs.kernel_inputs(**cs.MAIN_SHAPES, device=dev)
+    if kind == "frontier_expand_packed":
+        vis = pack_words(vis)
+    shapes += [("all-padding hop", torch.full_like(rows, -1), torch.zeros_like(deg), vis, n),
+               ("synthetic hop (MAIN_SHAPES)", rows, deg, vis, n)]
+    return [(name, r, d, v, n_, cs.hop_figures(kind, r, d, n_)) for name, r, d, v, n_ in shapes]
+
+
+def compare_frontier(others: list, dev) -> None:
+    names = [str(o) for o in others] + ["this"]
+    libs = dict(zip(names, load_variants("frontier.cu", others) + [None]))
+    tier, li, wl, base = cs.path_setup(dev)
+    for layout, kind in cs.KERNELS_BY_LAYOUT.items():
+        _, replay = cs.record_path(tier, li, wl, base, "landmark", layout, dev)
+        shapes = frontier_inputs(kind, replay, dev)
+        for name, rows, deg, vis, n, _ in shapes:
+            want = cs.expand(kind, rows, deg, vis, n, kernel=False)
+            for k, lib in libs.items():
+                with using(lib):
+                    if not torch.equal(cs.expand(kind, rows, deg, vis, n, kernel=True), want):
+                        raise AssertionError(f"{k}: {kind} != plain version on {name}")
+        fns = [cs.in_place(kind, rows, deg, vis.clone(), n)
+               for _, rows, deg, vis, n, _ in shapes]
+        ms = {k: [] for k in names}
+        for k in turns(names):
+            with using(libs[k]):
+                ms[k].append(cs.launch_ms(fns, cs.KERNELS[kind][2]))
+        for i, (name, rows, deg, vis, n, fig) in enumerate(shapes):
+            print(json.dumps(dict(kernel=kind, shape=name, ms={k: [t[i] for t in v]
+                                                               for k, v in ms.items()},
+                                  **fig)), flush=True)
+        path = slice(0, len(replay))
+        print(json.dumps(dict(kernel=kind, shape=f"median over the {len(replay)} path launches",
+                              ms={k: [float(np.median(t[path])) for t in v]
+                                  for k, v in ms.items()},
+                              bound_ms=float(np.median([s[5]["bound_ms"] for s in shapes[path]])))),
+              flush=True)
+        del replay, shapes, fns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, nargs="?",
                     help="another flash_attention.cu to time against this tree's")
     ap.add_argument("--segment", type=Path, nargs="+", metavar="SEGMENT_SUM_CU",
                     help="other segment_sum.cu sources to time against this tree's")
+    ap.add_argument("--frontier", type=Path, nargs="+", metavar="FRONTIER_CU",
+                    help="other frontier.cu sources to time against this tree's")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    if (args.other is None) == (args.segment is None):
-        ap.error("give one flash_attention.cu or --segment with segment_sum.cu sources")
+    if sum(x is not None for x in (args.other, args.segment, args.frontier)) != 1:
+        ap.error("give one flash_attention.cu, or --segment or --frontier with other sources")
     if not torch.cuda.is_available():
         print("flash_compare: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     if args.segment:
         compare_segment([p.resolve() for p in args.segment], dev)
-        print(cs.nvidia_smi())
-        return 0
-    libs = load(args.other.resolve())
-    g = torch.Generator(device=dev).manual_seed(0)
-    shapes = [s for s in cs.ATTN_SHAPES if s[-1] == torch.bfloat16] + [PREFILL_LAUNCH]
-    for name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype in shapes:
-        q = torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
-        k = torch.randn(B, Hkv, Skv, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(B, Hkv, Skv, D, generator=g, device=dev).to(dtype)
-        reps = 10 if Sq * Skv >= 2**22 else 30
-        ms = {"other": [], "this": []}
-        for n in ("other", "this", "this", "other"):
-            ms[n].append(cs.median_ms(lambda: run(libs[n], q, k, v, causal, window, cap), reps))
-        sdpa = None
-        if window is None and cap is None:
-            sdpa = cs.median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True), reps)
-        bound, by, _ = cs.attn_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
-        print(json.dumps(dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
-                              other_ms=ms["other"], this_ms=ms["this"], sdpa_ms=sdpa,
-                              bound_ms=bound, bound_by=by,
-                              speedup=float(np.mean(ms["other"]) / np.mean(ms["this"])))),
-              flush=True)
-        del q, k, v
+    elif args.frontier:
+        compare_frontier([p.resolve() for p in args.frontier], dev)
+    else:
+        compare_flash(args.other.resolve(), dev)
     print(cs.nvidia_smi())
     return 0
 

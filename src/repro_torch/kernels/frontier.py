@@ -2,9 +2,13 @@
 
 One hop of Algorithm 5: given the adjacency rows of every query's frontier
 and the visited sets, mark all valid neighbours visited. The CUDA kernels
-are in `csrc/frontier.cu` (one thread per candidate; see its header for
-the TPU kernels they replace and what bounds them); the wrappers here check
-their inputs, launch them on the current stream and count launches in
+are in `csrc/frontier.cu`. Their grid is over frontier rows: each warp loads
+the degrees of 32 rows, takes a ballot of the live ones (deg > 0) and serves
+only those, its lanes over a row's entries. On the serving path most
+launches carry a few dozen live rows out of 65,536, so a launch costs little
+more than reading deg; the header gives the TPU kernels they replace, the
+path's bound and the launch's floor. The wrappers here check their inputs,
+launch one kernel on the current stream (no host sync) and count launches in
 `kernels.build.LAUNCHES`. For tensors on the CPU a wrapper runs the kernel's plain
 version (`kernels.ref`) instead and counts nothing; on a CUDA tensor it
 launches the kernel or raises.

@@ -38,11 +38,18 @@ def mark(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
     return out.index_fill_(0, slot, True)[:size]
 
 
+def in_range(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """0 <= ids < n. The limit is compared as ids <= n - 1 clamped to the
+    ids' dtype: a Python int past its range would wrap (n >= 2**31 for
+    int32 ids), and then no id would be in range."""
+    return (ids >= 0) & (ids <= min(n - 1, torch.iinfo(ids.dtype).max))
+
+
 def _delta(rows: torch.Tensor, deg: torch.Tensor, n: int) -> torch.Tensor:
     """(B, n) bool: the candidates one hop marks (w < deg, 0 <= id < n)."""
     B, F, W = rows.shape
     width_ok = torch.arange(W, device=rows.device)[None, None, :] < deg[:, :, None]
-    ok = width_ok & (rows >= 0) & (rows < n)
+    ok = width_ok & in_range(rows, n)
     flat = torch.arange(B, device=rows.device)[:, None, None] * n + rows
     return mark(flat, ok, B * n).view(B, n)
 
