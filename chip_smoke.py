@@ -38,13 +38,15 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      order) against its bound;
   7. looks up DIN's histories (serve_bulk, serve_p99) in its full item
      table (1,048,576 x 18) by embedding_bag, sum and mean, weighted and
-     not: one launch a call, checked against float64, timed beside
-     F.embedding_bag;
+     not: one launch a call, checked against float64, a second call
+     bit-equal to the first, timed on the profile's device clock (and by
+     CUDA events) beside F.embedding_bag and three bounds;
   8. holds both on the card against the CPU at a small size, and shows
      that float16 computes on the CPU and raises on the card.
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
-versions in float64 over case grids (the test grids and edge cases).
+versions in float64 over case grids (the test grids and edge cases; for
+the bag, every branch of its kernel, each read back from a profile).
 
 Any mismatch raises; there is no fallback to the CPU. The last line is
 {"ok": true, "device": {...}}.
@@ -154,21 +156,63 @@ SEG_GRID = [
     ("K +- 1 edges D 3", None, 3, 9, "k", torch.float32),
 ]
 # embedding bag against float64: BAG_REL sum_l |w row| per element, as for
-# the segment sum (BAG_GRID: name, B, L, V, D, combine, weighted, dtype,
-# ids drawn below; the first four are tests/test_kernels.py's BAG_CASES)
+# the segment sum. BAG_GRID: name, B, L, V, D, combine, weighted, dtype,
+# ids drawn below `hi` (V when None), the table's base moved by `shift`
+# elements (a contiguous view), and the padding: "25%" of the entries,
+# "all", "tail" (each bag's valid entries first, then >= 32 of -1) or
+# "past V" (every id >= V, then 25 % padding). The first four are
+# tests/test_kernels.py's BAG_CASES. Together the cases take every branch
+# of csrc/embedding_bag.cu, <T, VEC> (BAG_BRANCHES), and rows of one to
+# seventeen column passes: each case's branch is named in the log and read
+# back from a profile of its launch.
 BAG_REL = 1e-6
+F32, BF16 = torch.float32, torch.bfloat16
 BAG_GRID = [
-    ("16x4 V64 D8 sum", 16, 4, 64, 8, "sum", False, torch.float32, None),
-    ("64x12 V256 D16 sum w", 64, 12, 256, 16, "sum", True, torch.float32, None),
-    ("32x8 V128 D4 mean w", 32, 8, 128, 4, "mean", True, torch.float32, None),
-    ("130x5 V96 D8 mean", 130, 5, 96, 8, "mean", False, torch.float32, None),
-    ("ids >= V", 50, 6, 40, 18, "mean", True, torch.float32, 60),
-    ("all padding", 20, 7, 30, 18, "mean", False, torch.float32, None),
-    ("B 1", 1, 100, 1000, 18, "sum", True, torch.float32, None),
-    ("D 1", 64, 9, 50, 1, "mean", True, torch.float32, None),
-    ("D 129", 40, 11, 300, 129, "sum", True, torch.float32, None),
-    ("bf16", 200, 100, 5000, 18, "mean", True, torch.bfloat16, None),
+    ("16x4 V64 D8 sum", 16, 4, 64, 8, "sum", False, F32, None, 0, "25%"),
+    ("64x12 V256 D16 sum w", 64, 12, 256, 16, "sum", True, F32, None, 0, "25%"),
+    ("32x8 V128 D4 mean w", 32, 8, 128, 4, "mean", True, F32, None, 0, "25%"),
+    ("130x5 V96 D8 mean", 130, 5, 96, 8, "mean", False, F32, None, 0, "25%"),
+    ("ids >= V", 50, 6, 40, 18, "mean", True, F32, 60, 0, "25%"),
+    ("all padding", 20, 7, 30, 18, "mean", False, F32, None, 0, "all"),
+    ("B 1", 1, 100, 1000, 18, "sum", True, F32, None, 0, "25%"),
+    ("D 1", 64, 9, 50, 1, "mean", True, F32, None, 0, "25%"),
+    ("D 129", 40, 11, 300, 129, "sum", True, F32, None, 0, "25%"),
+    ("bf16", 200, 100, 5000, 18, "mean", True, BF16, None, 0, "25%"),
+    ("table[1:] D 18, base 8- not 16-byte aligned", 64, 40, 500, 18, "sum", True, F32, None,
+     18, "25%"),
+    ("D 18, base 4-byte aligned", 64, 40, 500, 18, "mean", True, F32, None, 1, "25%"),
+    ("L 100, >= 32 padding at the tail", 300, 100, 2000, 18, "mean", True, F32, None, 0,
+     "tail"),
+    ("L 100, every id >= V", 30, 100, 64, 18, "sum", True, F32, None, 0, "past V"),
+    ("L 32", 64, 32, 300, 18, "sum", False, F32, None, 0, "25%"),
+    ("L 300, ten chunks", 40, 300, 2000, 18, "mean", True, F32, None, 0, "tail"),
+    ("D 2", 64, 33, 100, 2, "mean", True, F32, None, 0, "25%"),
+    ("D 2, base 4-byte aligned", 64, 33, 100, 2, "sum", True, F32, None, 1, "25%"),
+    ("D 3", 64, 31, 100, 3, "sum", True, F32, None, 0, "25%"),
+    ("D 7", 64, 65, 100, 7, "mean", False, F32, None, 0, "25%"),
+    ("D 5", 64, 50, 100, 5, "sum", True, F32, None, 0, "25%"),
+    ("D 33", 64, 50, 300, 33, "mean", True, F32, None, 0, "25%"),
+    ("D 40", 32, 64, 300, 40, "mean", False, F32, None, 0, "25%"),
+    ("D 66", 32, 64, 300, 66, "sum", True, F32, None, 0, "25%"),
+    ("D 200, seventeen column passes", 16, 37, 100, 200, "mean", True, F32, None, 0, "25%"),
+    ("bf16 D 1", 64, 40, 100, 1, "sum", True, BF16, None, 0, "25%"),
+    ("bf16 D 2", 64, 40, 100, 2, "sum", True, BF16, None, 0, "25%"),
+    ("bf16 D 2, base 2-byte aligned", 64, 40, 100, 2, "mean", True, BF16, None, 1, "25%"),
+    ("bf16 D 33", 64, 40, 100, 33, "sum", False, BF16, None, 0, "25%"),
+    ("bf16 D 4", 64, 40, 100, 4, "mean", True, BF16, None, 0, "25%"),
+    ("bf16 D 7", 100, 50, 400, 7, "sum", True, BF16, None, 0, "25%"),
+    ("bf16 D 8", 64, 40, 100, 8, "sum", True, BF16, None, 0, "25%"),
+    ("bf16 D 5", 64, 40, 100, 5, "mean", True, BF16, None, 0, "25%"),
+    ("bf16 D 16", 64, 40, 100, 16, "sum", False, BF16, None, 0, "25%"),
+    ("bf16 table[1:] D 18", 64, 100, 500, 18, "sum", True, BF16, None, 18, "tail"),
+    ("bf16 D 18, base 2-byte aligned", 64, 100, 500, 18, "mean", True, BF16, None, 1, "25%"),
+    ("bf16 D 40", 32, 64, 300, 40, "sum", True, BF16, None, 0, "25%"),
+    ("bf16 D 65", 32, 64, 300, 65, "mean", True, BF16, None, 0, "25%"),
+    ("bf16 D 66", 32, 64, 300, 66, "sum", False, BF16, None, 0, "25%"),
+    ("bf16 D 130", 16, 37, 100, 130, "sum", True, BF16, None, 0, "25%"),
 ]
+BAG_TYPES = {F32: "float", BF16: "__nv_bfloat16"}  # T as the kernel's name spells it
+BAG_BRANCHES = {(t, vec) for t in BAG_TYPES.values() for vec in (1, 2)}
 CATCH_SHARE = 0.99  # a tolerance must catch a dropped item in this share of rows
 
 # GNN aggregation (phase 6): configs/base.py ogb_products, configs/pna.py width
@@ -1197,32 +1241,66 @@ def bag_check(out, table, idx, w, combine, scale=1.0):
     return (float(diff.max()) if diff.numel() else 0.0), used, plain, tol
 
 
+def bag_branch(table) -> tuple:
+    """(T, VEC): the branch of csrc/embedding_bag.cu that its host code
+    picks for `table`. VEC = 2 for an even D whose base is aligned to two
+    elements, else 1."""
+    D = table.shape[1]
+    vec = 2 if D % 2 == 0 and table.data_ptr() % (2 * table.element_size()) == 0 else 1
+    return BAG_TYPES[table.dtype], vec
+
+
+def bag_grid_inputs(i, B, L, V, D, weighted, dtype, hi, shift, pad, device):
+    """A BAG_GRID case's table (a contiguous view `shift` elements into its
+    storage), ids and weights, drawn from seed 100 + i."""
+    rng = np.random.default_rng(100 + i)
+    flat = torch.from_numpy(rng.standard_normal(V * D + shift).astype(np.float32))
+    table = flat.to(device=device, dtype=dtype)[shift:].view(V, D)
+    lo, top = (V, 2 * V + 5) if pad == "past V" else (0, hi or V)
+    idx = rng.integers(lo, top, (B, L))
+    if pad == "tail":
+        idx[np.arange(L)[None, :] >= rng.integers(1, L - 31, (B, 1))] = -1
+    else:
+        idx[rng.random((B, L)) < (1.0 if pad == "all" else 0.25)] = -1
+    w = torch.from_numpy(rng.random((B, L)).astype(np.float32)).to(device) if weighted else None
+    return table, torch.from_numpy(idx.astype(np.int32)).to(device), w
+
+
 def check_bag_grid(device):
     """The bag kernel against `embedding_bag_ref` on float64 copies at every
-    BAG_GRID case (the test grid's draws, 25 % padding)."""
+    BAG_GRID case, each case's branch read back from a profile of its
+    launch (the kernel's name carries <T, VEC>); the cases together
+    take every branch."""
     from repro_torch.kernels.embedding_bag import embedding_bag
 
-    max_err, used = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (what, B, L, V, D, combine, weighted, dtype, hi) in enumerate(BAG_GRID):
-        rng = np.random.default_rng(100 + i)
-        table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
-        idx = rng.integers(0, hi if hi else V, (B, L))
-        idx[rng.random((B, L)) < (1.0 if what == "all padding" else 0.25)] = -1
-        w = torch.from_numpy(rng.random((B, L)).astype(np.float32)).to(device) \
-            if weighted else None
-        table = table.to(device=device, dtype=dtype)
-        idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+    symbol = KERNELS["embedding_bag"][2]
+    max_err, used, seen = 0.0, {F32: 0.0, BF16: 0.0}, set()
+    for i, (what, B, L, V, D, combine, weighted, dtype, hi, shift, pad) in enumerate(BAG_GRID):
+        table, idx, w = bag_grid_inputs(i, B, L, V, D, weighted, dtype, hi, shift, pad, device)
         out = embedding_bag(table, idx, w, combine)
         torch.cuda.synchronize()
         if out.dtype != dtype or out.shape != (B, D):
             raise AssertionError(f"embedding_bag at {what}: {out.dtype} {tuple(out.shape)}")
         err, u, _, _ = bag_check(out, table, idx, w, combine)
         max_err, used[dtype] = max(max_err, err), max(used[dtype], u)
+        branch = bag_branch(table)
+        names = [n for n in device_ops(lambda: embedding_bag(table, idx, w, combine),
+                                       want=symbol) if symbol in n]
+        if not names or any(f"{symbol}<{branch[0]}, {branch[1]}>" not in n for n in names):
+            raise AssertionError(f"embedding_bag at {what}: expected branch {branch}, the "
+                                 f"profile shows {names}")
+        seen.add(branch)
+        log(f"[bag] {what}: branch <{branch[0]}, VEC {branch[1]}> "
+            f"({'vector' if branch[1] == 2 else 'scalar'}), base {table.data_ptr() % 16} mod 16 "
+            f"bytes, max err {err:.3g}, {u:.4f} of the tolerance")
+    if seen != BAG_BRANCHES:
+        raise AssertionError(f"BAG_GRID misses branches {sorted(BAG_BRANCHES - seen)}")
     log(f"[kernel] embedding_bag: {len(BAG_GRID)} cases (the test grid, ids >= V clamped, "
-        f"all padding, B 1, D 1 / 129, bf16) within {BAG_REL} sum|w row| (+ 2^-8 |plain| "
-        f"in bf16) of the float64 plain version: max err {max_err:.3g}; share of the "
-        f"tolerance used {used[torch.float32]:.4f} in float32, {used[torch.bfloat16]:.4f} "
-        f"in bf16 (whose output rounding alone may use all of it)")
+        f"all padding, B 1, L 32 / 100, tail padding, D 1 to 200, shifted bases, bf16) over "
+        f"all {len(BAG_BRANCHES)} branches within {BAG_REL} sum|w row| (+ 2^-8 |plain| in "
+        f"bf16) of the float64 plain version: max err {max_err:.3g}; share of the tolerance "
+        f"used {used[F32]:.4f} in float32, {used[BF16]:.4f} in bf16 (whose output rounding "
+        f"alone may use all of it)")
     return max_err
 
 
@@ -1518,14 +1596,39 @@ def hub_only(device, D, g):
 # ---------------------------------------------------------------------------
 
 
+def bag_bounds_ms(idx: torch.Tensor, weighted: bool, D: int) -> dict:
+    """Times at the HBM rate of a bag lookup of (B, L) ids over a float32
+    (V, D) table: the ids (and weights) read once, the output written once,
+    and the rows: each distinct row once (`bound_ms`, the least time), each
+    lookup's row (`gathered_bound_ms`), or each lookup's 32-byte sectors
+    (`sector_hbm_ms`; a 72-byte row spans three wherever it starts, the
+    table's base aligned to 256 bytes): an estimate, not a bound, since L2
+    serves the sectors of rows read again."""
+    B, L = idx.shape
+    ids = idx[idx >= 0].long()
+    io = 4 * B * L * (2 if weighted else 1) + 4 * B * D
+    start = ids * (4 * D)
+    sectors = int(((start + 4 * D - 1) // 32 - start // 32 + 1).sum())
+    distinct = torch.unique(ids).numel()
+    rate = HBM_BYTES_PER_S / 1e3
+    return dict(lookups=ids.numel(), distinct_rows=distinct, sectors=sectors,
+                bound_ms=(io + 4 * D * distinct) / rate,
+                gathered_bound_ms=(io + 4 * D * ids.numel()) / rate,
+                sector_hbm_ms=(io + 32 * sectors) / rate)
+
+
 def din_lookups(device):
     """Phase 7: `ops.embedding_bag` over DIN's item table (configs/din.py:
     1,048,576 x 18 float32, std 0.01 as din.param_specs draws it) with
     `din_batch` histories (L = 100, ragged -1 tails) at serve_bulk and
     serve_p99, sum and mean, unweighted and weighted: one launch a call
     (the main path), the result against float64 with the tolerance's
-    self-check (each bag's last valid item dropped), kernel, plain,
-    F.embedding_bag and bound times."""
+    self-check (each bag's last valid item dropped), a second call
+    bit-equal to the first, and kernel, plain and F.embedding_bag times on
+    the profile's device clock (`launch_ms`) beside CUDA events
+    (`median_ms`, which at a few microseconds time the host's launch path
+    too), beside the bound (each distinct row once), each lookup's row,
+    and the estimate of each lookup's 32-byte sectors from HBM."""
     import torch.nn.functional as F
 
     from repro_torch.data.recsys import din_batch
@@ -1537,17 +1640,16 @@ def din_lookups(device):
     g = torch.Generator(device=device).manual_seed(1)
     table = torch.randn((V, D), generator=g, device=device).mul_(0.01)
     lib_table = torch.cat([table, table.new_zeros((1, D))])  # row V: padding
+    symbol = KERNELS["embedding_bag"][2]
     results, launches = [], 0
     for step, (shape, B) in enumerate(DIN_BATCHES.items()):
         idx = torch.from_numpy(din_batch(step, B)["hist_items"]).to(device)
         ok = idx >= 0
-        n_valid = int(ok.sum())
         lib_idx = torch.where(ok, idx, V)
         last = torch.where(ok, torch.arange(idx.shape[1], device=device), -1).argmax(1)
         idx_drop = idx.clone()
         idx_drop[torch.arange(B, device=device), last] = -1
         nonempty = ok.any(1)
-        distinct = torch.unique(idx[ok]).numel()
         w_all = torch.rand(idx.shape, generator=g, device=device)
         for combine in ("sum", "mean"):
             for weighted in (False, True):
@@ -1559,6 +1661,11 @@ def din_lookups(device):
                 if counted != {"embedding_bag": 1}:
                     raise AssertionError(f"{shape} {combine}: launches {counted}")
                 launches += 1
+                again = ops.embedding_bag(table, idx, w, combine)
+                if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+                    raise AssertionError(f"{shape} {combine}: two calls differ in "
+                                         f"{int((out != again).sum())} elements")
+                del again
                 err, used, plain, tol = bag_check(out, table, idx, w, combine)
                 wrong = ref.embedding_bag_ref(table.double(), idx_drop,
                                               None if w is None else w.double(), combine)
@@ -1568,39 +1675,44 @@ def din_lookups(device):
                                          f"{share} of dropped items")
                 del wrong, plain, tol
                 reps = 30 if B < 10_000 else 10
-                k_ms = median_ms(lambda: embedding_bag(table, idx, w, combine), reps=reps)
-                p_ms = median_ms(lambda: ref.embedding_bag_ref(table, idx, w, combine),
-                                 reps=reps)
-                lib_ms = lib_err = None
+                kernel = lambda: embedding_bag(table, idx, w, combine)
+                plain_fn = lambda: ref.embedding_bag_ref(table, idx, w, combine)
+                k_ms, k_ev = launch_ms([kernel], symbol, reps)[0], median_ms(kernel, reps)
+                p_ms, p_ev = launch_ms([plain_fn], None, reps)[0], median_ms(plain_fn, reps)
+                lib_ms = lib_ev = lib_err = None
                 if not (weighted and combine == "mean"):  # no library call computes it
                     lib = lambda: F.embedding_bag(lib_idx, lib_table, mode=combine,
                                                   padding_idx=V, per_sample_weights=w)
                     lib_err, _, _, _ = bag_check(lib(), table, idx, w, combine)
-                    lib_ms = median_ms(lib, reps=reps)
-                wbytes = 4 * B * idx.shape[1] if weighted else 0
-                io = 4 * B * idx.shape[1] + wbytes + 4 * B * D
-                b_ms = (io + distinct * D * 4) / HBM_BYTES_PER_S * 1e3
-                gb_ms = (io + n_valid * D * 4) / HBM_BYTES_PER_S * 1e3
-                lib_txt = (f"{lib_ms:.4f} ms (its max err {lib_err:.3g})" if lib_ms is not None
-                           else "n/a (no weighted mean)")
-                log(f"[din] {shape} ({B} x {idx.shape[1]}, {n_valid} lookups, {distinct} "
-                    f"distinct rows) {combine}{' weighted' if weighted else ''}: 1 launch, max "
-                    f"err {err:.3g} ({used:.4f} of the tolerance), dropping each bag's last "
-                    f"item exceeds it on {share:.6f} of bags; kernel {k_ms:.4f} ms, plain "
-                    f"{p_ms:.4f} ms, F.embedding_bag {lib_txt}, bound {b_ms:.4f} ms "
-                    f"(distinct rows; {gb_ms:.4f} ms if each lookup read its row)")
+                    lib_ms, lib_ev = launch_ms([lib], None, reps)[0], median_ms(lib, reps)
+                bd = bag_bounds_ms(idx, weighted, D)
+                lib_txt = (f"{lib_ms:.5f} ms (events {lib_ev:.4f}; its max err {lib_err:.3g})"
+                           if lib_ms is not None else "n/a (no weighted mean)")
+                log(f"[din] {shape} ({B} x {idx.shape[1]}, {bd['lookups']} lookups, "
+                    f"{bd['distinct_rows']} distinct rows, {bd['sectors']} sectors) "
+                    f"{combine}{' weighted' if weighted else ''}"
+                    f": 1 launch, a second call bit-equal, max err {err:.3g} ({used:.4f} of the "
+                    f"tolerance), dropping each bag's last item exceeds it on {share:.6f} of "
+                    f"bags; device time (profile): kernel {k_ms:.5f} ms, plain {p_ms:.4f} ms, "
+                    f"F.embedding_bag {lib_txt}; CUDA events: kernel {k_ev:.4f} ms, plain "
+                    f"{p_ev:.4f} ms; bound {bd['bound_ms']:.5f} ms (distinct rows; "
+                    f"{bd['gathered_bound_ms']:.4f} ms if each lookup read its row, "
+                    f"{bd['sector_hbm_ms']:.4f} ms all its sectors from HBM, an estimate)")
                 results.append(dict(shape=shape, batch=B, combine=combine, weighted=weighted,
-                                    lookups=n_valid, distinct_rows=distinct, launches=1,
-                                    max_abs_err=err, share_of_tol=used, drop_item_share=share,
-                                    ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                                    library_max_abs_err=lib_err, bound_ms=b_ms,
-                                    gathered_bound_ms=gb_ms))
+                                    launches=1, bit_equal=True, max_abs_err=err,
+                                    share_of_tol=used, drop_item_share=share, ms=k_ms,
+                                    plain_ms=p_ms, library_ms=lib_ms, events_ms=k_ev,
+                                    plain_events_ms=p_ev, library_events_ms=lib_ev,
+                                    library_max_abs_err=lib_err, **bd))
     main = results[0]
     row = dict(name="embedding_bag", route="cuda", source=KERNELS["embedding_bag"][3],
                replaces=KERNELS["embedding_bag"][1], launches=launches,
                max_abs_err=max(r["max_abs_err"] for r in results), ms=main["ms"],
                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
-               library_ms=main["library_ms"])
+               library_ms=main["library_ms"],
+               input=f"serve_bulk sum, unweighted ({main['batch']} din_batch bags of 100 over "
+                     f"the {V} x {D} float32 table)",
+               clock="device time from torch.profiler")
     return row, results
 
 

@@ -1,5 +1,5 @@
-"""This tree's flash-attention, segment-sum or frontier kernels against
-other sources of them, timed on one GPU in turns.
+"""This tree's flash-attention, segment-sum, frontier or embedding-bag
+kernels against other sources of them, timed on one GPU in turns.
 
     mkdir -p build/other
     git archive <rev> src/repro_torch/kernels/csrc/flash_attention.cu | tar -x -C build/other
@@ -10,6 +10,9 @@ other sources of them, timed on one GPU in turns.
 
     git archive <rev> src/repro_torch/kernels/csrc/frontier.cu | tar -x -C build/other
     python3 flash_compare.py --frontier build/other/src/repro_torch/kernels/csrc/frontier.cu
+
+    git archive <rev> src/repro_torch/kernels/csrc/embedding_bag.cu | tar -x -C build/other
+    python3 flash_compare.py --bag build/other/src/repro_torch/kernels/csrc/embedding_bag.cu
 
 Each other source is built in a copy of the port's sources, in place of
 this tree's file of the same name (`kernels.build`, all builds together),
@@ -37,6 +40,16 @@ replayed), an all-padding hop at the path's shape and the synthetic hop
 the others, this, this, the others in reverse, each turn one profile of 20
 launches an input (`chip_smoke.launch_ms`: the kernels take microseconds,
 below what CUDA events see).
+
+Embedding bag (`--bag`, one or more other sources): phase 7 of
+`chip_smoke.py` (DIN's 1,048,576 x 18 float32 table, `din_batch` histories
+at serve_bulk and serve_p99), sum and mean, unweighted and weighted; every
+source within the tolerance of the float64 plain version on each
+(`chip_smoke.bag_check`), then the others, this, this, the others in
+reverse, each turn one profile of a batch's four calls
+(`chip_smoke.launch_ms`), beside the bounds and the all-sectors-from-HBM
+estimate (`chip_smoke.bag_bounds_ms`); then this tree's kernel at serve_bulk on
+probes that change only where its rows come from (`bag_probes`).
 
 One JSON line a shape, then the card's name and power limit. Needs a CUDA
 device; imports no JAX.
@@ -82,17 +95,20 @@ def load_variants(name: str, sources: list) -> list:
 @contextlib.contextmanager
 def using(lib):
     """The kernel wrappers launch from `lib` (this tree's when None)."""
-    from repro_torch.kernels import frontier, segment_reduce
+    from repro_torch.kernels import embedding_bag, frontier, segment_reduce
 
     if lib is None:
         yield
         return
-    saved = frontier.load_library, segment_reduce.load_library
-    frontier.load_library = segment_reduce.load_library = lambda: lib
+    modules = (frontier, segment_reduce, embedding_bag)
+    saved = [m.load_library for m in modules]
+    for m in modules:
+        m.load_library = lambda: lib
     try:
         yield
     finally:
-        frontier.load_library, segment_reduce.load_library = saved
+        for m, fn in zip(modules, saved):
+            m.load_library = fn
 
 
 def turns(names: list) -> list:
@@ -228,6 +244,65 @@ def compare_frontier(others: list, dev) -> None:
         del replay, shapes, fns
 
 
+def compare_bag(others: list, dev) -> None:
+    from repro_torch.data.recsys import din_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+
+    names = [str(o) for o in others] + ["this"]
+    libs = dict(zip(names, load_variants("embedding_bag.cu", others) + [None]))
+    V, D = cs.DIN_TABLE
+    g = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn((V, D), generator=g, device=dev).mul_(0.01)
+    for step, (shape, B) in enumerate(cs.DIN_BATCHES.items()):
+        idx = torch.from_numpy(din_batch(step, B)["hist_items"]).to(dev)
+        w_all = torch.rand(idx.shape, generator=g, device=dev)
+        cases = [(combine, w_all if weighted else None)
+                 for combine in ("sum", "mean") for weighted in (False, True)]
+        for combine, w in cases:
+            for k, lib in libs.items():
+                with using(lib):
+                    err, used, _, _ = cs.bag_check(embedding_bag(table, idx, w, combine), table,
+                                                   idx, w, combine)
+                print(f"[check] {k} {shape} {combine}{'' if w is None else ' weighted'}: max "
+                      f"err {err:.3g}, {used:.4f} of the tolerance", flush=True)
+        fns = [lambda c=c, w=w: embedding_bag(table, idx, w, c) for c, w in cases]
+        ms = {k: [] for k in names}
+        for k in turns(names):
+            with using(libs[k]):
+                ms[k].append(cs.launch_ms(fns, cs.KERNELS["embedding_bag"][2],
+                                          reps=10 if B > 10_000 else 20))
+        for i, (combine, w) in enumerate(cases):
+            print(json.dumps(dict(kernel="embedding_bag", shape=shape, batch=B, combine=combine,
+                                  weighted=w is not None,
+                                  ms={k: [t[i] for t in v] for k, v in ms.items()},
+                                  **cs.bag_bounds_ms(idx, w is not None, D))), flush=True)
+        if B > 10_000:
+            bag_probes(table, idx, dev)
+        del idx, w_all
+
+
+def bag_probes(table, idx, dev) -> None:
+    """This tree's bag kernel (sum, unweighted) on inputs that change only
+    where its rows come from, one profile: what bounds it at serve_bulk."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+
+    ok = idx >= 0
+    V = table.shape[0]
+    big = torch.randn((2 * V, table.shape[1]), device=dev)
+    probes = {
+        "as served": (table, idx),
+        "ids mod 8192 (0.59 MB of rows: L2-resident)": (table, torch.where(ok, idx % 8192, idx)),
+        "bags sorted by their first id": (table, idx[torch.argsort(idx[:, 0], stable=True)]
+                                                 .contiguous()),
+        "every entry padding (ids read, no rows)": (table, torch.full_like(idx, -1)),
+        "table of 2V rows, ids x 2 (151 MB)": (big, torch.where(ok, idx * 2, idx)),
+    }
+    ms = cs.launch_ms([lambda t=t, i=i: embedding_bag(t, i) for t, i in probes.values()],
+                      cs.KERNELS["embedding_bag"][2], reps=10)
+    for name, t in zip(probes, ms):
+        print(json.dumps(dict(kernel="embedding_bag", probe=name, this_ms=t)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, nargs="?",
@@ -236,10 +311,13 @@ def main() -> int:
                     help="other segment_sum.cu sources to time against this tree's")
     ap.add_argument("--frontier", type=Path, nargs="+", metavar="FRONTIER_CU",
                     help="other frontier.cu sources to time against this tree's")
+    ap.add_argument("--bag", type=Path, nargs="+", metavar="EMBEDDING_BAG_CU",
+                    help="other embedding_bag.cu sources to time against this tree's")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    if sum(x is not None for x in (args.other, args.segment, args.frontier)) != 1:
-        ap.error("give one flash_attention.cu, or --segment or --frontier with other sources")
+    if sum(x is not None for x in (args.other, args.segment, args.frontier, args.bag)) != 1:
+        ap.error("give one flash_attention.cu, or --segment, --frontier or --bag with other "
+                 "sources")
     if not torch.cuda.is_available():
         print("flash_compare: no CUDA device", file=sys.stderr)
         return 1
@@ -248,6 +326,8 @@ def main() -> int:
         compare_segment([p.resolve() for p in args.segment], dev)
     elif args.frontier:
         compare_frontier([p.resolve() for p in args.frontier], dev)
+    elif args.bag:
+        compare_bag([p.resolve() for p in args.bag], dev)
     else:
         compare_flash(args.other.resolve(), dev)
     print(cs.nvidia_smi())

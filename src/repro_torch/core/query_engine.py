@@ -35,7 +35,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core.cache import CacheState
 from repro_torch.core.storage import StorageTier, multi_read_ref
 from repro_torch.core.visited import get_visited_layout
-from repro_torch.kernels.ref import mark
+from repro_torch.kernels.ref import in_range, mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +224,7 @@ def run_neighbor_aggregation(
     for _ in range(h):
         if touched_map is not None:
             ids = frontier.reshape(-1)
-            touched_map = touched_map | mark(ids, (ids >= 0) & (ids < n), n)
+            touched_map = touched_map | mark(ids, in_range(ids, n), n)
         res = expand_hop(cache_state, visited, frontier, cfg, multi_read, n)
         visited, frontier, cache_state = res.visited, res.frontier, res.cache
         misses = misses + res.probe_misses

@@ -1,9 +1,9 @@
 """Embedding bag on Hopper: the recsys lookup of a bag of table rows.
 
-The CUDA kernel is in `csrc/embedding_bag.cu` (one thread per output
-element; see its header for the TPU kernel it replaces and what bounds
-it). The wrapper here checks its inputs, launches it on the current stream
-and counts launches in `kernels.build.LAUNCHES`. For tensors on the CPU it
+The CUDA kernel is in `csrc/embedding_bag.cu` (one warp a bag; see its
+header for the TPU kernel it replaces and what bounds it). The wrapper
+here checks its inputs, launches it on the current stream and counts
+launches in `kernels.build.LAUNCHES`. For tensors on the CPU it
 runs the kernel's plain version (`kernels.ref.embedding_bag_ref`) instead
 and counts nothing; on a CUDA tensor it launches the kernel or raises.
 
@@ -27,7 +27,7 @@ from repro_torch.kernels.build import launch, load_library
 from repro_torch.kernels.ref import PLAIN_DTYPES, embedding_bag_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256  # csrc kThreads
+_BAGS = 4  # csrc kBags: bags a block, one warp each
 
 
 def _check(table: torch.Tensor, indices: torch.Tensor, weights: Optional[torch.Tensor],
@@ -67,8 +67,8 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
-    if -(-B * D // _THREADS) >= 2**31:
-        raise ValueError(f"{B} x {D} outputs is too many for one grid")
+    if -(-B // _BAGS) >= 2**31:
+        raise ValueError(f"{B} bags is too many for one grid")
     launch("embedding_bag", load_library().embedding_bag, table.device,
            table.data_ptr(), indices.data_ptr(),
            None if weights is None else weights.data_ptr(), out.data_ptr(),

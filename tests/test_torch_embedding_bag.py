@@ -9,6 +9,9 @@ are held against `embedding_bag_ref` only: its gather clamps them to the
 last row, where the Pallas kernel in interpret mode gives NaN.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -190,3 +193,68 @@ def test_din_batch_equals_the_reference(step, batch, seed):
     for k in expect:
         assert port[k].dtype == expect[k].dtype, k
         np.testing.assert_array_equal(port[k], expect[k], err_msg=k)
+
+
+# The CUDA kernel (csrc/embedding_bag.cu) sums a bag in another order than
+# the plain version: entry slot s of a warp takes the entries l = s mod S in
+# ascending l, S = 32 / kLanes slots of kLanes lanes, and the slots are
+# combined by a shuffle tree over lane offsets 16, 8, ..., kLanes. The test
+# below holds a float32 emulation of that order, not the kernel (which
+# runs only on the card, where chip_smoke.py holds it to the float64 plain
+# version), within chip_smoke.py's bag tolerance, on DIN's histories. S is
+# read from the kernel's source, so the emulation follows its lane count.
+BAG_REL = 1e-6  # chip_smoke.py BAG_REL: the tolerance is BAG_REL * sum_l |w row|
+BAG_CU = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/embedding_bag.cu"
+
+
+def _slots() -> int:
+    """S = 32 / kLanes: the kernel's entry slots a warp."""
+    return 32 // int(re.search(r"constexpr int kLanes = (\d+);", BAG_CU.read_text()).group(1))
+
+
+def _kernel_order(table, idx, w, combine):
+    """float32, as the kernel: each product w * row rounded, each slot's sum
+    in ascending l (padding adds 0 * 0), the slots' tree, then the mean's
+    division."""
+    B, L = idx.shape
+    S = _slots()
+    ok = idx >= 0
+    x = torch.where(ok[..., None], table[idx.long().clamp(0, table.shape[0] - 1)], 0.0)
+    wl = ok.float() if w is None else torch.where(ok, w, 0.0)
+    prod = wl[..., None] * x  # (B, L, D), float32
+    prod = torch.cat([prod, prod.new_zeros((B, -L % S, prod.shape[2]))], 1)
+    prod = prod.view(B, -1, S, prod.shape[2])
+    acc = torch.zeros((B, S, prod.shape[3]))
+    for t in range(prod.shape[1]):
+        acc = acc + prod[:, t]
+    off = S // 2
+    while off:
+        acc = acc[:, :off] + acc[:, off:2 * off]
+        off //= 2
+    out = acc[:, 0]
+    if combine == "mean":
+        out = out / ok.sum(1, keepdim=True).clamp(min=1).float()
+    return out
+
+
+@pytest.mark.parametrize("D", [18, 1])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_kernel_summation_order_within_the_bag_tolerance(D, combine, weighted):
+    """DIN's histories (L = 100, ragged -1 tails) over a table of std 0.01
+    (din.param_specs), in the emulated order: at D = 18 (the serving width)
+    and D = 1."""
+    hist = din_batch(0, 512, n_items=1 << 16, n_cats=1024)["hist_items"]
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy((0.01 * rng.standard_normal((1 << 16, D))).astype(np.float32))
+    idx = torch.from_numpy(hist)
+    w = torch.from_numpy(rng.random(hist.shape).astype(np.float32)) if weighted else None
+    got = _kernel_order(table, idx, w, combine).double()
+    w64 = None if w is None else w.double()
+    exact = ref.embedding_bag_ref(table.double(), idx, w64, combine)
+    tol = BAG_REL * ref.embedding_bag_ref(table.double().abs(), idx,
+                                          None if w is None else w64.abs(), combine)
+    share = float(((got - exact).abs() / tol.clamp(min=1e-300)).max())
+    print(f"S = {_slots()}, D = {D}, {combine}{' weighted' if weighted else ''}: {share:.4f} of the "
+          f"tolerance")
+    assert share < 1

@@ -143,3 +143,43 @@ def test_dedup_first_matches_reference(vals):
     tfirst, tsrc = tq._dedup_first(t(ids))
     np.testing.assert_array_equal(np_of(tfirst), np.asarray(jfirst))
     np.testing.assert_array_equal(np_of(tsrc), np.asarray(jsrc))
+
+
+def test_touch_map_filter_past_int32(monkeypatch):
+    """`run_neighbor_aggregation`'s touch-map filter at n = 2^31 + 33 on int32
+    frontier ids: every id >= 0 is in range. Compared raw, n wraps in torch
+    and no id would be. The n-sized pieces (the layout's search state,
+    `expand_hop`, `mark`) are stubbed, so nothing n-sized is allocated; the
+    stub of `mark` keeps the mask it is handed."""
+    import torch
+
+    n = 2**31 + 33
+    frontier = torch.tensor([[5, -1, 2**31 - 1], [0, -7, 7]], dtype=torch.int32)
+    masks = []
+
+    class Layout:
+        def init_search(self, queries, n_, max_frontier):
+            return torch.zeros(2, 1), frontier, torch.ones(2, dtype=torch.bool)
+
+        def count(self, visited):
+            return torch.zeros(2, dtype=torch.int32)
+
+    def expand_hop(cache_state, visited, frontier_, cfg, multi_read, n_):
+        zero = torch.zeros((), dtype=torch.int32)
+        return tq.HopResult(visited, frontier_, cache_state, torch.zeros(2, dtype=torch.bool),
+                            zero, zero, zero)
+
+    def mark(ids, ok, size):
+        assert size == n
+        masks.append((ids.clone(), ok.clone()))
+        return torch.zeros(4, dtype=torch.bool)
+
+    monkeypatch.setattr(tq, "get_visited_layout", lambda name: Layout())
+    monkeypatch.setattr(tq, "expand_hop", expand_hop)
+    monkeypatch.setattr(tq, "mark", mark)
+    *_, tmap = tq.run_neighbor_aggregation(None, frontier[:, 0], 2, n, tq.EngineConfig(),
+                                           None, touched_map=torch.zeros(4, dtype=torch.bool))
+    assert len(masks) == 2 and tmap.shape == (4,)
+    for ids, ok in masks:
+        assert torch.equal(ids, frontier.reshape(-1))
+        assert ok.tolist() == [True, False, True, True, False, True]
