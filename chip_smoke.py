@@ -11,16 +11,27 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      flash-attention kernel at the Qwen3-4B prefill shape, a Gemma2-like
      local layer and small, ragged and fully masked cases in both dtypes,
      each shape profiled to show its route: bf16 on the tensor cores,
-     float32 on the CUDA cores), with times and bounds;
-  2. serves the 262,144-node power-law preset end to end through
-     `ServingEngine` (hash and landmark routing, dense and packed visited
-     sets), checks the launch counts and the results, and profiles it;
+     float32 on the CUDA cores), with times and bounds; the single-query
+     entry points (`ops.frontier_expand`, `_packed`) at the edge shapes;
+  2. trains the graph embedding (Algorithm 3) on the card for the
+     262,144-node power-law preset and profiles its two stages; serves the
+     preset end to end through `ServingEngine` (hash, landmark, embed and
+     next_ready routing, dense and packed visited sets), checks the launch
+     counts and the results, and profiles the landmark cells;
      then runs each landmark cell once more with every frontier launch's
      inputs recorded (live rows and entries, targets, bound), sums them
      against the profile, and replays a sample of the launches: bit-equal
      to the plain version and to a second launch, no host sync, timed;
-  3. replays an oversubscribed run with a colliding cache on the card and
-     on the CPU, field by field;
+     graph updates (§3.4): `incremental_add_node` for existing nodes and
+     a new one, `incremental_embed_node` for them; h-hop reachability
+     (cuda against scatter, both layouts) and a random walk (card against
+     CPU) over the preset's queries;
+  3. trains the embedding of a 4,800-node preset on the card and on the
+     CPU from the same draws, for four seeds, and holds the coordinates,
+     each node's own loss and rel_error together, with readings after 1,
+     10 and 100 steps of each stage; replays an
+     oversubscribed run with a colliding cache on the card and on the CPU,
+     field by field, for all four routing schemes;
   4. serves Qwen3-4B at full width in bf16 (random weights from a seed):
      4 prompts of 4,096 tokens prefilled, then 64 greedy decode steps;
      checks 36 flash launches per prefill and none in decode, finite
@@ -62,6 +73,8 @@ import os
 import subprocess
 import sys
 import time
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -97,7 +110,9 @@ KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
 TIMING_FIELDS = ("wall_s", "throughput_qps")
 PROFILE_PAD = 64  # spin kernels ahead of a profiled call (see device_ops)
-PROFILE_TRIES = 3  # profiles of one call while the trace lacks the kernel sought
+# profiles of one call while the trace lacks the kernel sought (the
+# profiler has dropped a short call's events three times in a row)
+PROFILE_TRIES = 5
 
 # flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
 # causal, window, softcap, dtype); the first is the Qwen3-4B prefill shape
@@ -233,6 +248,30 @@ CPU_DIN_BATCH = 4096
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_MAX_SEQ = 4, 4096, 64, 4160
 TEACHER_FORCED_REL_TOL = 0.1  # relative L2 error, bf16 decode vs prefill (PERF.md)
 CARD_VS_CPU_TOL = 1e-3  # max error over max |value|, float32 (PERF.md)
+
+# graph routing (phases 2 and 3)
+SCHEMES = ("hash", "landmark", "embed", "next_ready")
+COORD_ATOL = 5e-4  # embedding coordinates, card vs CPU (tests/test_torch_embedding.py)
+REL_ERROR_ATOL = 1e-5  # an embedding's rel_error, card vs CPU (the same tests)
+# a trained embedding's rel_error: 0.116 at 262,144 nodes and 0.134 at
+# 4,800 on every run; 0.476 untrained and 0.184 after 20 of its 200 node
+# steps (embed_sensitivity.py, PERF.md)
+EMBED_MAX_REL_ERROR = 0.15
+EMBED_SEEDS = 4  # init draws trained on the card and on the CPU (phase 3)
+# each node's own loss, card vs CPU: a rounding-level change (another sum
+# order, landmarks moved by 1e-6) moves up to 8 of the 4,800 nodes by more
+# than COORD_ATOL, one by 0.26 (into another minimum of its loss), but no
+# node's loss by more than 7.6e-5, nor rel_error by more than 3.1e-7
+# (embed_sensitivity.py on the CPU, PERF.md). COORD_ATOL is held at
+# EmbedConfig().seed, where both sides' sums have read 2.3e-4 apart.
+NODE_LOSS_ATOL = 1e-3
+EMBED_STEP_READINGS = (1, 10, 100)  # steps after which card and CPU are compared
+INCREMENTAL_MAX_REL = 0.5  # an incremental node's mean relative error (the reference test's)
+NEW_NODE_EDGES = 4  # edges of the node appended to the graph
+REACH_HOPS = (2, 3)
+REACH_BATCH = 16
+WALK_HOPS = 4
+WALK_SEED = 11
 
 
 def log(*a):
@@ -448,6 +487,7 @@ def check_kernels(device):
             torch.cuda.synchronize()
             err = max(err, max_err(out_k, expand(kind, rows, deg, vis, shapes["n"], kernel=False),
                                    f"{kind} != plain version at {shapes}"))
+        check_single_query(layout, device)
         wide = WIDE_SHAPES[kind]
         rows, deg, vis = wide_inputs(kind, **wide, device=device)
         out_k = expand(kind, rows, deg, vis, wide["n"], kernel=True)
@@ -468,11 +508,39 @@ def check_kernels(device):
                          synthetic_bound_ms=fig["bound_ms"], floor_ms=floor_ms,
                          floor_bound_ms=floor_bound)
         log(f"[kernel] {kind}: exact vs {KERNELS[kind][0]} at {MAIN_SHAPES}, "
-            f"{len(EDGE_SHAPES)} edge shapes and {wide} (64-bit indices); synthetic hop "
+            f"{len(EDGE_SHAPES)} edge shapes (also through the single-query entry point, "
+            f"B = 1) and {wide} (64-bit indices); synthetic hop "
             f"{k_ms * 1e3:.2f} us (device time), plain {p_ms:.4f} ms (device time), bound "
             f"{fig['bound_ms'] * 1e3:.3f} us; all-padding "
             f"hop (the floor) {floor_ms * 1e3:.2f} us, bound {floor_bound * 1e3:.3f} us")
     return out
+
+
+def check_single_query(layout, device) -> None:
+    """`kernels.ops.frontier_expand` / `frontier_expand_packed` (the
+    reference's single-query entry points, B = 1 views of the kernels)
+    bit-equal to their plain versions at EDGE_SHAPES with B = 1; the kernel
+    launched once a call, in place."""
+    from repro_torch.kernels import frontier as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import LAUNCHES
+
+    kind = KERNELS_BY_LAYOUT[layout]
+    for shapes in EDGE_SHAPES:
+        n = shapes["n"]
+        rows, deg, vis = (x[0] for x in kernel_inputs(**dict(shapes, B=1), device=device))
+        if layout == "dense":
+            call = lambda v, k: ops.frontier_expand(rows, deg, v, use_kernel=k)  # noqa: E731
+        else:
+            vis = fr.pack_words(vis)
+            call = lambda v, k: ops.frontier_expand_packed(rows, deg, v, n, use_kernel=k)  # noqa: E731
+        before = LAUNCHES.get(kind, 0)
+        out_k = vis.clone()
+        if call(out_k, "auto") is not out_k or LAUNCHES.get(kind, 0) != before + 1:
+            raise AssertionError(f"ops entry point of {kind} at {shapes}: not one launch "
+                                 f"in place")
+        max_err(out_k, call(vis.clone(), False),
+                f"ops entry point of {kind} != plain version at {shapes}, B = 1")
 
 
 # ---------------------------------------------------------------------------
@@ -480,12 +548,12 @@ def check_kernels(device):
 # ---------------------------------------------------------------------------
 
 
-def make_engine(tier, li, scheme, cfg, device):
+def make_engine(tier, li, scheme, cfg, device, embedding=None):
     from repro_torch.core.router import Router, RouterConfig
     from repro_torch.serve.engine import ServingEngine
 
     router = Router(cfg.n_processors, RouterConfig(scheme=scheme), landmark_index=li,
-                    seed=3, device=device)
+                    embedding=embedding, seed=3, device=device)
     return ServingEngine(tier, router, cfg, device=device)
 
 
@@ -506,8 +574,8 @@ def assert_same_result(a, b, what):
 
 
 def path_setup(device, preset="large", n_queries=128, n_landmarks=24):
-    """The main path's graph, storage tier, landmark index, workload and
-    engine settings: the repo's scale run (benchmarks/bench_engine.py
+    """The main path's storage tier, landmark index, workload, engine
+    settings and graph: the repo's scale run (benchmarks/bench_engine.py
     _scale_bench settings, cut from 256 to 128 queries to leave the LM
     phases their time)."""
     from repro_torch.core.landmarks import build_landmark_index
@@ -531,24 +599,28 @@ def path_setup(device, preset="large", n_queries=128, n_landmarks=24):
     base = EngineRunConfig(
         n_processors=4, round_size=16, capacity=16, hops=2, max_frontier=4096,
         cache_sets=4096, cache_ways=8, chain_depth=64, expand_backend="cuda")
-    return tier, li, wl, base
+    return tier, li, wl, base, g
 
 
 def main_path(device, **setup):
-    """Phase 2: the scale run (`path_setup`) with the kernels, against the
-    same runs on the scatter backend; a profile of each landmark cell; then
-    one more run of each, recorded (`record_path`), whose launches are
-    summed up against the profile and replayed (`check_path_launches`)."""
+    """Phase 2: the scale run (`path_setup`), its embedding trained on the
+    card (`train_embedding`), every routing scheme served with the kernels
+    against the same runs on the scatter backend; a profile of each
+    landmark cell; then one more run of each landmark cell, recorded
+    (`record_path`), whose launches are summed up against the profile and
+    replayed (`check_path_launches`). Also returns what the later parts of
+    phase 2 run on (the setup and the embedding)."""
     from repro_torch.kernels.build import LAUNCHES
 
-    tier, li, wl, base = path_setup(device, **setup)
+    tier, li, wl, base, g = path_setup(device, **setup)
+    emb, training = train_embedding(li, device, profile=True)
     launches = {k: 0 for k in KERNELS_BY_LAYOUT.values()}
     cells = []
-    for scheme in ("hash", "landmark"):
+    for scheme in SCHEMES:
         by_layout = {}
         for layout in ("dense", "packed"):
             cfg = dataclasses.replace(base, visited_layout=layout)
-            eng = make_engine(tier, li, scheme, cfg, device)
+            eng = make_engine(tier, li, scheme, cfg, device, emb)
             LAUNCHES.clear()  # counts of this main-path run only
             res, _ = eng.run(wl)
             counted = dict(LAUNCHES)
@@ -560,7 +632,7 @@ def main_path(device, **setup):
             if not res.completed.all():
                 raise AssertionError(f"{scheme}/{layout}: not every query completed")
             ref_res, _ = make_engine(tier, li, scheme, dataclasses.replace(
-                cfg, expand_backend="scatter"), device).run(wl)
+                cfg, expand_backend="scatter"), device, emb).run(wl)
             assert_same_result(res, ref_res, f"{scheme}/{layout} cuda vs scatter")
             by_layout[layout] = res
             rounds = len(res.per_round["counts"])
@@ -570,7 +642,7 @@ def main_path(device, **setup):
                         rounds=rounds, launches=counted[kernel],
                         launches_per_round=counted[kernel] / rounds)
             cells.append(cell)
-            log(f"[main] {scheme:>8s} {layout:>6s}: qps {res.throughput_qps:.2f} "
+            log(f"[main] {scheme:>10s} {layout:>6s}: qps {res.throughput_qps:.2f} "
                 f"hit {res.hit_rate:.4f} reads {res.reads} wall {res.wall_s:.3f} s "
                 f"(scatter backend {ref_res.wall_s:.3f} s) truncated {res.truncated} "
                 f"{kernel} launches {counted[kernel]} over {rounds} rounds")
@@ -590,7 +662,261 @@ def main_path(device, **setup):
                                  f"{len(figures)} launches, the cell {cell['launches']}")
         path[kind] = dict(recorded=summarize_path(kind, figures, prof),
                           replayed=check_path_launches(kind, replay))
-    return launches, cells, profiles, path
+    ctx = dict(g=g, tier=tier, li=li, wl=wl, base=base, emb=emb, training=training)
+    return launches, cells, profiles, path, ctx
+
+
+def train_embedding(li, device, noise=None, profile=False):
+    """`build_graph_embedding` with the defaults (EmbedConfig()) from the
+    landmark index's distances on `device`: its wall (to the host copy) and
+    `rel_error`; with `profile`, then each stage alone, timed and profiled
+    (device busy time, top ops). `noise` = (lm_noise, node_noise), else the
+    seeded generator's draws. Returns (embedding, figures)."""
+    from repro_torch.core import embedding as te
+
+    cfg = te.EmbedConfig()
+    lm_noise, node_noise = noise or (None, None)
+    t = time.perf_counter()
+    emb = te.build_graph_embedding(li.dist_to_lm, li.landmarks, cfg, device=device,
+                                   lm_noise=lm_noise, node_noise=node_noise)
+    wall = time.perf_counter() - t
+    if not (np.isfinite(emb.coords).all() and emb.coords.shape == (li.dist_to_lm.shape[0],
+                                                                  cfg.dim)):
+        raise AssertionError(f"embedding: coordinates of shape {emb.coords.shape}, "
+                             f"finite {np.isfinite(emb.coords).all()}")
+    err = emb.rel_error(li.dist_to_lm)
+    if not err < EMBED_MAX_REL_ERROR:
+        raise AssertionError(f"embedding on {device}: rel_error {err} (limit "
+                             f"{EMBED_MAX_REL_ERROR})")
+    out = dict(n=int(emb.coords.shape[0]), landmarks=int(len(emb.landmarks)), dim=cfg.dim,
+               lm_steps=cfg.lm_steps, node_steps=cfg.node_steps, wall_s=wall, rel_error=err)
+    log(f"[embed] {out['n']} nodes x {out['landmarks']} landmarks, dim {cfg.dim}, "
+        f"{cfg.lm_steps} + {cfg.node_steps} Adam steps on {device}: {wall:.3f} s; "
+        f"rel_error {err:.6f}")
+    if not profile:
+        return emb, out
+    dist = torch.from_numpy(li.dist_to_lm).to(device)
+    lm_dist = dist[torch.from_numpy(li.landmarks.astype(np.int64)).to(device)]
+    lm_coords = torch.from_numpy(emb.lm_coords).to(device)
+    stages = {"landmarks": lambda: te.embed_landmarks(lm_dist, cfg.dim, cfg.lm_steps, cfg.lr),
+              "nodes": lambda: te.embed_nodes(dist, lm_coords, cfg.node_steps, cfg.lr)}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        by_name = device_ops(fn)
+        busy = sum(us for us, _ in by_name.values()) / 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        out[name] = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                         device_ops=sum(c for _, c in by_name.values()),
+                         top=[dict(name=k[:80], ms=us / 1e3, calls=c) for k, (us, c) in top])
+        log(f"[embed] stage {name}: wall {wall:.3f} s, device busy {busy:.3f} s (busy share "
+            f"{busy / wall:.4f}), {out[name]['device_ops']} device ops; top: " + "; ".join(
+                f"{x['name'][:40]} {x['ms']:.2f} ms x{x['calls']}" for x in out[name]["top"]))
+    return emb, out
+
+
+def graph_updates(ctx, device) -> dict:
+    """Graph updates at full size (§3.4). `incremental_add_node` on the card
+    for the highest-degree node, a node of the lowest degree (the preset
+    has no degree-1 node) and one in the middle of the id range: every
+    table bit-equal to `build_landmark_index`'s (the graph is unchanged, so
+    the recomputed row is the same). Then two nodes appended, one after
+    the other: one with edges to NEW_NODE_EDGES existing nodes, then a
+    degree-1 node joined to that first one (a leaf there opens no shortcut
+    between old nodes, which the tables would not see). Each new row is 1 + the
+    element-wise least of its neighbours' rows, its processor row the
+    least over each processor's landmarks, the old rows untouched. For
+    each of these nodes `incremental_embed_node` gives finite coordinates
+    whose mean relative error against the landmarks is under
+    INCREMENTAL_MAX_REL."""
+    from repro_torch.core.embedding import incremental_embed_node
+    from repro_torch.core.landmarks import UNREACHED, incremental_add_node
+    from repro_torch.graph.csr import build_csr, csr_to_edge_index
+
+    g, li, emb = ctx["g"], ctx["li"], ctx["emb"]
+    deg = g.degree()
+    nodes = {"highest degree": int(np.argmax(deg)), "lowest degree": int(np.argmin(deg)),
+             "middle": g.n // 2}
+    out = {}
+    t = time.perf_counter()
+    for what, u in nodes.items():
+        new = incremental_add_node(li, g, u, device=device)
+        for f in ("landmarks", "dist_to_lm", "lm_processor", "dist_to_proc", "pivots"):
+            if not np.array_equal(getattr(new, f), getattr(li, f)):
+                raise AssertionError(f"incremental_add_node({what} node {u}): {f} differs "
+                                     f"from build_landmark_index's")
+        out[what] = dict(node=u, degree=int(deg[u]), row=new.dist_to_lm[u].tolist())
+    appended = {f"new, {NEW_NODE_EDGES} edges": np.linspace(0, g.n - 1, NEW_NODE_EDGES)
+                .astype(np.int64), "new, 1 edge": np.array([g.n])}
+    src, dst = csr_to_edge_index(g)
+    news = g.n + np.arange(len(appended))
+    src = np.concatenate([src] + [np.full(len(v), u) for u, v in zip(news, appended.values())]
+                         + list(appended.values()))
+    dst = np.concatenate([dst] + list(appended.values())
+                         + [np.full(len(v), u) for u, v in zip(news, appended.values())])
+    g_new = build_csr(g.n + len(appended), src, dst)
+    new = li
+    for u, (what, nbrs) in zip(news, appended.items()):
+        new = incremental_add_node(new, g_new, int(u), device=device)
+        least = new.dist_to_lm[nbrs].min(0).astype(np.int64)
+        expect = np.where(least >= UNREACHED, UNREACHED, least + 1).astype(np.int32)
+        expect_proc = np.array([expect[li.lm_processor == p].min()
+                                if (li.lm_processor == p).any() else UNREACHED
+                                for p in range(li.dist_to_proc.shape[1])], np.int32)
+        if not (np.array_equal(new.dist_to_lm[u], expect)
+                and np.array_equal(new.dist_to_proc[u], expect_proc)
+                and np.array_equal(new.dist_to_lm[:g.n], li.dist_to_lm)
+                and np.array_equal(new.dist_to_proc[:g.n], li.dist_to_proc)):
+            raise AssertionError(f"incremental_add_node({what} node {u}): row "
+                                 f"{new.dist_to_lm[u]}, expected {expect} (1 + the least "
+                                 f"of its neighbours' rows)")
+        out[what] = dict(node=int(u), degree=len(nbrs), neighbours=nbrs.tolist(),
+                         row=new.dist_to_lm[u].tolist())
+    t_add = time.perf_counter() - t
+    t = time.perf_counter()
+    rows = {what: new.dist_to_lm[x["node"]] for what, x in out.items()}
+    for what, d in rows.items():
+        x = incremental_embed_node(emb, d, device=device)
+        d_true = d.astype(np.float64)
+        pred = np.sqrt(((emb.lm_coords - x) ** 2).sum(-1))
+        ok = (d_true > 0) & (d_true < float(UNREACHED))
+        rel = float((np.abs(pred[ok] - d_true[ok]) / d_true[ok]).mean())
+        if not (np.isfinite(x).all() and rel < INCREMENTAL_MAX_REL):
+            raise AssertionError(f"incremental_embed_node({what}): {x}, mean relative error "
+                                 f"{rel} (limit {INCREMENTAL_MAX_REL})")
+        out[what]["embed_rel_error"] = rel
+    t_embed = time.perf_counter() - t
+    out["seconds"] = dict(add_node=t_add, embed_node=t_embed)
+    log(f"[update] incremental_add_node on the card, {len(nodes)} existing nodes "
+        + ", ".join(f"{w} {x['node']} (degree {x['degree']})" for w, x in out.items()
+                    if w in nodes)
+        + ": every table bit-equal to build_landmark_index's; appended "
+        + ", ".join(f"{w}: node {out[w]['node']} joined to {out[w]['neighbours']}"
+                    for w in appended)
+        + f": each row = 1 + the least of its neighbours', old rows untouched ({t_add:.2f} s "
+        f"with the new graph's CSR)")
+    log("[update] incremental_embed_node on the card: mean relative error "
+        + ", ".join(f"{w} {x['embed_rel_error']:.4f}" for w, x in out.items() if w != "seconds")
+        + f" (limit {INCREMENTAL_MAX_REL}; {t_embed:.2f} s for {len(rows)} nodes)")
+    return out
+
+
+def _on(obj, device):
+    """A dataclass of tensors (storage tier, cache) with every tensor moved
+    to `device`."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _same_fields(a, b, what):
+    """Every field of two results (tensors, None or values) equal, on the
+    host."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {f.name} differs")
+        elif x is not None or y is not None:
+            if x != y:
+                raise AssertionError(f"{what}: {f.name} {x} != {y}")
+
+
+def query_types(ctx, device) -> dict:
+    """The paper's other query types at full size. h-hop reachability over
+    the preset's queries and their targets in batches of REACH_BATCH, one
+    cache carried over the batches, at each h of REACH_HOPS and each
+    layout: the cuda backend against scatter, the reachable flags, every
+    QueryStats field (truncated_fwd / _bwd included) and the final cache
+    bit-equal; only the layout's kernel launched. Then a WALK_HOPS-step
+    random walk from every query on the card and on the CPU with the same
+    draws (`uniform_draw` on a CPU generator): the final nodes, stats and
+    cache bit-equal."""
+    from repro_torch.core.cache import make_cache
+    from repro_torch.core.query_engine import (
+        EngineConfig, make_ref_multi_read, run_random_walk, run_reachability, uniform_draw,
+    )
+    from repro_torch.kernels.build import LAUNCHES
+
+    tier, wl, base = ctx["tier"], ctx["wl"], ctx["base"]
+    n = tier.n
+    src = torch.from_numpy(wl.query_nodes.astype(np.int32)).to(device)
+    dst = torch.from_numpy(wl.targets.astype(np.int32)).to(device)
+    out = dict(reachability=[])
+    for h in REACH_HOPS:
+        for layout, kind in KERNELS_BY_LAYOUT.items():
+            runs = {}
+            for backend in ("cuda", "scatter"):
+                cfg = EngineConfig(max_frontier=base.max_frontier, chain_depth=base.chain_depth,
+                                   expand_backend=backend, visited_layout=layout)
+                cache = make_cache(base.cache_sets, base.cache_ways, tier.row_width,
+                                   device=device)
+                LAUNCHES.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                batches = []
+                for i in range(0, src.shape[0], REACH_BATCH):
+                    reach, cache, stats = run_reachability(
+                        cache, src[i:i + REACH_BATCH], dst[i:i + REACH_BATCH], h, n, cfg,
+                        make_ref_multi_read(tier))
+                    batches.append((reach, stats))
+                torch.cuda.synchronize()
+                runs[backend] = (batches, cache, time.perf_counter() - t, dict(LAUNCHES))
+            (kb, kc, k_s, counted), (sb, sc, s_s, s_counted) = runs["cuda"], runs["scatter"]
+            what = f"reachability h={h} {layout}"
+            if counted.get(kind, 0) == 0 or sum(counted.values()) != counted[kind] \
+                    or sum(s_counted.values()) != 0:
+                raise AssertionError(f"{what}: launches {counted}, scatter {s_counted}")
+            for (r1, st1), (r2, st2) in zip(kb, sb):
+                if not torch.equal(r1, r2):
+                    raise AssertionError(f"{what}: reachable flags differ, cuda vs scatter")
+                _same_fields(st1, st2, f"{what} stats, cuda vs scatter")
+            _same_fields(kc, sc, f"{what} cache, cuda vs scatter")
+            reach = torch.cat([r for r, _ in kb])
+            cell = dict(
+                h=h, layout=layout, queries=int(reach.numel()), batches=len(kb),
+                reachable=int(reach.sum()),
+                truncated=int(sum(int(st.truncated.sum()) for _, st in kb)),
+                truncated_fwd=int(sum(int(st.truncated_fwd.sum()) for _, st in kb)),
+                truncated_bwd=int(sum(int(st.truncated_bwd.sum()) for _, st in kb)),
+                reads=int(sum(int(st.reads) for _, st in kb)),
+                touched=int(sum(int(st.touched) for _, st in kb)),
+                result_size_mean=float(torch.cat([st.result_sizes for _, st in kb])
+                                       .float().mean()),
+                launches=counted[kind], kernel=kind, wall_s=k_s, scatter_wall_s=s_s)
+            out["reachability"].append(cell)
+            log(f"[reach] h={h} {layout:>6s}: {cell['reachable']} of {cell['queries']} "
+                f"reachable, truncated {cell['truncated']} (fwd {cell['truncated_fwd']}, "
+                f"bwd {cell['truncated_bwd']}), reads {cell['reads']}, touched "
+                f"{cell['touched']}; {kind} launches {cell['launches']}; wall {k_s:.3f} s "
+                f"(scatter {s_s:.3f} s); cuda == scatter in flags, every stat and the cache")
+    cfg = EngineConfig(max_frontier=base.max_frontier, chain_depth=base.chain_depth)
+    walks = []
+    for dev in (device, torch.device("cpu")):
+        t_dev = _on(tier, dev)
+        cache = make_cache(base.cache_sets, base.cache_ways, tier.row_width, device=dev)
+        t = time.perf_counter()
+        final, cache, stats = run_random_walk(
+            cache, src.to(dev), WALK_HOPS, n, cfg, make_ref_multi_read(t_dev),
+            draw=uniform_draw(torch.Generator().manual_seed(WALK_SEED)))
+        final = final.cpu()
+        walks.append((final, cache, stats, time.perf_counter() - t))
+    (fk, ck, sk, k_s), (fc, cc, sc_, c_s) = walks
+    if not torch.equal(fk, fc):
+        raise AssertionError("random walk: final nodes differ, card vs CPU")
+    _same_fields(sk, sc_, "random walk stats, card vs CPU")
+    _same_fields(ck, cc, "random walk cache, card vs CPU")
+    moved = int((fk != src.cpu()).sum())
+    out["random_walk"] = dict(h=WALK_HOPS, queries=int(fk.numel()), moved=moved,
+                              reads=int(sk.reads), touched=int(sk.touched),
+                              misses=int(sk.misses), wall_s=k_s, cpu_wall_s=c_s)
+    log(f"[walk] {WALK_HOPS}-step random walk from {fk.numel()} queries: {moved} ended off "
+        f"their start, reads {int(sk.reads)}, misses {int(sk.misses)}; card {k_s:.3f} s, CPU "
+        f"{c_s:.3f} s; final nodes, stats and cache equal card vs CPU")
+    return out
 
 
 # replayed launches of each kind a layout (link 0 of a hop, a later link),
@@ -760,38 +1086,149 @@ def profile_cell(tier, li, wl, base, scheme, layout, device):
                 top=[dict(name=n[:100], ms=us / 1e3, calls=c) for n, (us, c) in top[:12]])
 
 
-def oversubscribed(device, cpu="cpu"):
-    """Phase 3: 2x oversubscription, colliding cache (64 sets x 2 ways), the
-    run on `device` against the port's run on the CPU, field by field."""
-    from repro_torch.core.landmarks import build_landmark_index
+def oversub_run(adj, li, wl, emb, scheme, layout, device):
+    """One phase-3 run: 2x oversubscription, a colliding cache (64 sets x 2
+    ways), on `device`. A CPU run takes one thread (it runs beside
+    others, each in a process of its own)."""
     from repro_torch.core.storage import build_storage
+    from repro_torch.serve.engine import EngineRunConfig
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    P, B = 4, 16
+    cfg = EngineRunConfig(
+        n_processors=P, round_size=B, capacity=B // (2 * P), hops=2,
+        max_frontier=4096, cache_sets=64, cache_ways=2, chain_depth=64,
+        backlog_capacity=2 * B, track_touched=True, expand_backend="cuda",
+        visited_layout=layout)
+    tier = build_storage(adj, n_shards=4, device=device)
+    return make_engine(tier, li, scheme, cfg, device, emb).run(wl)[0]
+
+
+def node_losses(coords, lm_coords, dist_to_lm):
+    """Each node's own relative-error loss: the training objective's terms
+    of that node, averaged over its valid pairs, in float64 on the host."""
+    from repro_torch.core.landmarks import UNREACHED
+
+    d = dist_to_lm.astype(np.float64)
+    valid = (d > 0) & (d < float(UNREACHED))
+    diff = coords[:, None, :].astype(np.float64) - lm_coords[None, :, :]
+    err = (np.sqrt((diff * diff).sum(-1)) - d) / np.where(valid, d, 1.0)
+    return np.where(valid, err * err, 0.0).sum(1) / np.maximum(valid.sum(1), 1)
+
+
+def embedding_card_vs_cpu(li, device):
+    """The embedding trained on `device` and on the CPU from the same init
+    draws, made on a CPU generator, for EMBED_SEEDS seeds from
+    EmbedConfig().seed on. Held: at EmbedConfig().seed the coordinates
+    within COORD_ATOL; at every seed the landmark coordinates within
+    COORD_ATOL, each node's own loss within NODE_LOSS_ATOL and rel_error
+    within REL_ERROR_ATOL. Logged: the coordinates' difference at every
+    seed and, at the first, after EMBED_STEP_READINGS steps of each stage
+    (the node stage from the CPU's trained landmark coordinates on both),
+    which shows where the two part. Returns the CPU-trained embedding of
+    the first seed and the figures."""
+    from repro_torch.core import embedding as te
+
+    cfg = te.EmbedConfig()
+    cpu = torch.device("cpu")
+    L, n = len(li.landmarks), li.dist_to_lm.shape[0]
+    out = dict(seeds=[])
+    for seed in range(cfg.seed, cfg.seed + EMBED_SEEDS):
+        gen = torch.Generator().manual_seed(seed)
+        noise = (torch.randn((L, cfg.dim), generator=gen),
+                 torch.randn((n, cfg.dim), generator=gen))
+        emb, fig = {}, {}
+        for dev in (device, cpu):
+            emb[dev.type], fig[dev.type] = train_embedding(li, dev, noise)
+        a, b = emb[device.type], emb["cpu"]
+        coord = np.abs(a.coords - b.coords).max(1)
+        loss = np.abs(node_losses(a.coords, a.lm_coords, li.dist_to_lm)
+                      - node_losses(b.coords, b.lm_coords, li.dist_to_lm))
+        r = dict(seed=seed, coord_max_diff=float(coord.max()),
+                 rows_over_coord_atol=int((coord > COORD_ATOL).sum()),
+                 lm_max_diff=float(np.abs(a.lm_coords - b.lm_coords).max()),
+                 node_loss_max_diff=float(loss.max()),
+                 rel_error=(fig[device.type]["rel_error"], fig["cpu"]["rel_error"]),
+                 wall_s=(fig[device.type]["wall_s"], fig["cpu"]["wall_s"]))
+        out["seeds"].append(r)
+        log(f"[oversub] embedding of {n} nodes, seed {seed}: card vs CPU coordinates "
+            f"{r['coord_max_diff']:.3g} apart ({r['rows_over_coord_atol']} rows over "
+            f"{COORD_ATOL}), landmarks {r['lm_max_diff']:.3g}, a node's own loss "
+            f"{r['node_loss_max_diff']:.3g} (tolerance {NODE_LOSS_ATOL}); rel_error "
+            f"{r['rel_error'][0]:.6f} / {r['rel_error'][1]:.6f}")
+        held = [("landmark coordinates", r["lm_max_diff"], COORD_ATOL),
+                ("a node's own loss", r["node_loss_max_diff"], NODE_LOSS_ATOL),
+                ("rel_error", abs(r["rel_error"][0] - r["rel_error"][1]), REL_ERROR_ATOL)]
+        if seed == cfg.seed:
+            held.append(("coordinates", r["coord_max_diff"], COORD_ATOL))
+            first, noise0 = b, noise
+        for what, diff, tol in held:
+            if not diff <= tol:
+                raise AssertionError(f"embedding card vs CPU, seed {seed}: {what} differ by "
+                                     f"{diff} (tolerance {tol})")
+    dist = torch.from_numpy(np.ascontiguousarray(li.dist_to_lm, dtype=np.int32))
+    lm_dist = dist[torch.from_numpy(li.landmarks.astype(np.int64))]
+    lm = torch.from_numpy(first.lm_coords)
+    steps = []
+    for k in EMBED_STEP_READINGS + (cfg.node_steps,):
+        x = [te.embed_nodes(dist.to(dev), lm.to(dev), k, cfg.lr, noise=noise0[1]).cpu().numpy()
+             for dev in (device, cpu)]
+        r = dict(steps=k, coord_max_diff=float(np.abs(x[0] - x[1]).max()))
+        if k < cfg.lm_steps:
+            y = [te.embed_landmarks(lm_dist.to(dev), cfg.dim, k, cfg.lr, noise=noise0[0]).cpu()
+                 for dev in (device, cpu)]
+            r["lm_max_diff"] = float((y[0] - y[1]).abs().max())
+        steps.append(r)
+    out["by_steps"] = steps
+    log(f"[oversub] seed {cfg.seed}, card vs CPU after k steps of a stage, the node stage "
+        f"from the same landmark coordinates: " + "; ".join(
+            f"k = {r['steps']}: nodes {r['coord_max_diff']:.3g}"
+            + (f", landmarks {r['lm_max_diff']:.3g}" if "lm_max_diff" in r else "")
+            for r in steps))
+    return first, out
+
+
+def oversubscribed(device, cpu="cpu"):
+    """Phase 3: the embedding trained on `device` and on the CPU
+    (`embedding_card_vs_cpu`); then 2x oversubscription, colliding cache
+    (64 sets x 2 ways), every scheme, the run on `device` against the
+    port's run on the CPU, field by field (both routers on the CPU-trained
+    coordinates of EmbedConfig().seed)."""
+    from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.workloads import preset_workload
     from repro_torch.graph.csr import to_padded
-    from repro_torch.serve.engine import EngineRunConfig
 
     g, wl = preset_workload("small", n_queries=128, seed=0)
     adj = to_padded(g, max_degree=64)
     li = build_landmark_index(g, n_processors=4, n_landmarks=16, device=device)
-    P, B = 4, 16
-    for scheme in ("hash", "landmark"):
-        for layout in ("dense", "packed"):
-            cfg = EngineRunConfig(
-                n_processors=P, round_size=B, capacity=B // (2 * P), hops=2,
-                max_frontier=4096, cache_sets=64, cache_ways=2, chain_depth=64,
-                backlog_capacity=2 * B, track_touched=True, expand_backend="cuda",
-                visited_layout=layout)
-            results = []
-            for dev in (device, cpu):
-                tier = build_storage(adj, n_shards=4, device=dev)
-                res, _ = make_engine(tier, li, scheme, cfg, dev).run(wl)
-                results.append(res)
-            assert_same_result(results[0], results[1],
-                               f"oversubscribed {scheme}/{layout} {device} vs cpu")
-            r = results[0]
-            log(f"[oversub] {scheme:>8s} {layout:>6s}: completed "
-                f"{int(r.completed.sum())} dropped {r.n_dropped} peak backlog "
-                f"{r.peak_backlog} stolen {r.stolen} hit {r.hit_rate:.4f} -- "
-                f"equal to the CPU run")
+    emb_cpu, embedding = embedding_card_vs_cpu(li, device)
+    cells = [(scheme, layout) for scheme in SCHEMES for layout in ("dense", "packed")]
+    # a CPU run takes ~20 s (every chain link handles the whole B x F
+    # frontier); the runs go side by side in processes of one thread each,
+    # on all cores but one, while this process runs the card's (which are
+    # bound by its host thread) on that one
+    workers = max(1, min(len(cells), len(os.sched_getaffinity(0)) - 1))
+    t = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        on_cpu = [pool.submit(oversub_run, adj, li, wl, emb_cpu, scheme, layout, cpu)
+                  for scheme, layout in cells]
+        on_card = [oversub_run(adj, li, wl, emb_cpu, scheme, layout, device)
+                   for scheme, layout in cells]
+        t_card = time.perf_counter() - t
+        on_cpu = [f.result() for f in on_cpu]
+    t_all = time.perf_counter() - t
+    for (scheme, layout), r, r_cpu in zip(cells, on_card, on_cpu):
+        assert_same_result(r, r_cpu, f"oversubscribed {scheme}/{layout} {device} vs cpu")
+        log(f"[oversub] {scheme:>10s} {layout:>6s}: completed "
+            f"{int(r.completed.sum())} dropped {r.n_dropped} peak backlog "
+            f"{r.peak_backlog} stolen {r.stolen} hit {r.hit_rate:.4f} -- "
+            f"equal to the CPU run")
+    log(f"[oversub] {len(cells)} cells: the card's runs {t_card:.1f} s; with the CPU's, "
+        f"side by side in {workers} processes of one thread, {t_all:.1f} s")
+    return dict(embedding=embedding)
 
 
 # ---------------------------------------------------------------------------
@@ -1797,7 +2234,7 @@ def main() -> int:
     seg_err = check_segment_grid(device)
     bag_err = check_bag_grid(device)
     phase_done("kernel checks")
-    launches, cells, profiles, path = main_path(device)
+    launches, cells, profiles, path, ctx = main_path(device)
     for k, v in launches.items():
         # the kernel line: the synthetic hop (MAIN_SHAPES), on the profile's
         # clock; the path's replayed launches are on the frontier line
@@ -1814,7 +2251,12 @@ def main() -> int:
         log(f"[kernel] {k}: {v} launches on the main path, {v / rounds:.1f} per "
             f"engine round of 4 processors")
     phase_done("graph serving")
-    oversubscribed(device)
+    routing = dict(embedding=ctx["training"], graph_updates=graph_updates(ctx, device))
+    phase_done("graph updates")
+    routing["query_types"] = query_types(ctx, device)
+    del ctx
+    phase_done("reachability and random walk")
+    routing["card_vs_cpu"] = oversubscribed(device)
     phase_done("oversubscribed card vs CPU")
     lm, kernels["flash_attention"]["launches"] = lm_serving(device)
     phase_done("Qwen3-4B serving")
@@ -1831,6 +2273,7 @@ def main() -> int:
     phase_done("GNN and DIN card vs CPU")
 
     log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))
+    log(json.dumps({"routing": routing}))
     log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
     log(json.dumps({"gnn": gnn, "din": din, "card_vs_cpu": cpu}))
     log(smi)

@@ -215,7 +215,7 @@ def frontier_inputs(kind, replay, dev) -> list:
 def compare_frontier(others: list, dev) -> None:
     names = [str(o) for o in others] + ["this"]
     libs = dict(zip(names, load_variants("frontier.cu", others) + [None]))
-    tier, li, wl, base = cs.path_setup(dev)
+    tier, li, wl, base, _ = cs.path_setup(dev)
     for layout, kind in cs.KERNELS_BY_LAYOUT.items():
         _, replay = cs.record_path(tier, li, wl, base, "landmark", layout, dev)
         shapes = frontier_inputs(kind, replay, dev)

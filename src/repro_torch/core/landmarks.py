@@ -8,6 +8,9 @@
   5. assign the other landmarks to their closest pivot's processor (12-13)
   6. d(u, p) = min over landmarks assigned to p of d(u, l)        (14-15)
 
+and, on a graph update (§3.4.1), one more BFS from the new node extends
+the tables (`incremental_add_node`).
+
 The BFS runs on the device and advances the distances to ALL candidates
 at once: one min-relaxation per level over the edge list (a
 `scatter_reduce(..., "amin")`), until no distance changes. Steps 3-6 are
@@ -159,4 +162,50 @@ def build_landmark_index(
         lm_processor=lm_processor,
         dist_to_proc=dist_to_proc,
         pivots=pivots,
+    )
+
+
+def _proc_row(index: LandmarkIndex, d_lm: np.ndarray) -> np.ndarray:
+    """(P,) d(u, p) of one node from its (L,) landmark distances."""
+    P = index.dist_to_proc.shape[1]
+    row = np.full((P,), UNREACHED, np.int32)
+    for p in range(P):
+        mask = index.lm_processor == p
+        if mask.any():
+            row[p] = d_lm[mask].min()
+    return row
+
+
+def _set_row(table: np.ndarray, node: int, row: np.ndarray) -> np.ndarray:
+    """A copy of table with row `node` set, padded with UNREACHED rows when
+    node is past its end."""
+    if node < table.shape[0]:
+        out = table.copy()
+    else:
+        pad = np.full((node + 1 - table.shape[0], table.shape[1]), UNREACHED, np.int32)
+        out = np.concatenate([table, pad], 0)
+    out[node] = row
+    return out
+
+
+def incremental_add_node(
+    index: LandmarkIndex, g_new: CSRGraph, new_node: int, device: DeviceLike = None,
+) -> LandmarkIndex:
+    """Graph-update handling (paper §3.4.1): on node addition, compute the new
+    node's distance to every landmark (one BFS from the node over the updated
+    graph, on `device`) and extend the routing tables; existing entries are
+    untouched. A node past the tables' end pads them with UNREACHED rows."""
+    dev = resolve_device(device)
+    src, dst = csr_to_edge_index(g_new)
+    d_new = bfs_distances(
+        torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev),
+        torch.tensor([new_node], dtype=torch.int32, device=dev), g_new.n,
+    )[:, 0]  # (n,) distance from the new node to every node
+    d_lm = d_new[torch.from_numpy(index.landmarks.astype(np.int64)).to(dev)].cpu().numpy()
+    return LandmarkIndex(
+        landmarks=index.landmarks,
+        dist_to_lm=_set_row(index.dist_to_lm, new_node, d_lm),
+        lm_processor=index.lm_processor,
+        dist_to_proc=_set_row(index.dist_to_proc, new_node, _proc_row(index, d_lm)),
+        pivots=index.pivots,
     )

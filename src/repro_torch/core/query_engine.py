@@ -19,8 +19,11 @@ Per hop (one iteration of Algorithm 5's while loop):
 The chain loop is a Python loop: whether another link is needed is read
 on the host once per iteration (one device sync each). The next frontier
 is built from a cumsum rank and a scatter, so its shape stays fixed and
-no `nonzero` sync is needed. h-hop reachability and random walks are not
-ported yet.
+no `nonzero` sync is needed.
+
+The paper's three query types (§2.2): h-hop neighbour aggregation (the
+serving path), h-step random walk with restart and h-hop reachability (a
+bi-directional BFS through `expand_hop`, so through the same kernels).
 """
 
 from __future__ import annotations
@@ -189,6 +192,10 @@ class QueryStats:
     `misses` counts missed cache probes (duplicates within one probe each
     count); `reads` counts unique rows fetched from storage after
     intra-batch read combining.
+
+    `truncated_fwd`/`truncated_bwd` are set only by `run_reachability` (each
+    direction of its bi-directional BFS; `truncated` is their OR); every
+    other query type leaves them None.
     """
 
     touched: torch.Tensor  # rows needed across hops (hits+misses)
@@ -196,6 +203,8 @@ class QueryStats:
     result_sizes: torch.Tensor  # (B,) |N_h(q)|
     truncated: torch.Tensor  # (B,) bool
     reads: torch.Tensor  # unique storage rows fetched
+    truncated_fwd: Optional[torch.Tensor] = None  # (B,) bool, reachability only
+    truncated_bwd: Optional[torch.Tensor] = None  # (B,) bool, reachability only
 
 
 def run_neighbor_aggregation(
@@ -239,6 +248,108 @@ def run_neighbor_aggregation(
         truncated=truncated, reads=reads,
     )
     return counts, cache_state, stats, touched_map
+
+
+Draw = Callable[[int, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def uniform_draw(generator: torch.Generator, restart_prob: float = 0.15) -> Draw:
+    """The random walk's default draws, from `generator` on its own device:
+    draw(step, deg) -> (pick, restart), pick uniform in [0, max(deg, 1)),
+    restart where a uniform u < restart_prob. The results move to deg's
+    device, so one CPU generator gives the same walk on any device."""
+
+    def draw(step: int, deg: torch.Tensor):
+        B = deg.shape[0]
+        high = torch.clamp(deg.to(generator.device, torch.int64), min=1)
+        u = torch.rand(B, generator=generator, device=generator.device, dtype=torch.float64)
+        pick = torch.minimum((u * high).floor().to(torch.int64), high - 1)
+        restart = torch.rand(B, generator=generator, device=generator.device) < restart_prob
+        return pick.to(deg.device), restart.to(deg.device)
+
+    return draw
+
+
+def run_random_walk(
+    cache_state: CacheState,
+    queries: torch.Tensor,
+    h: int,
+    n: int,
+    cfg: EngineConfig,
+    multi_read: Callable,
+    draw: Draw,
+) -> Tuple[torch.Tensor, CacheState, QueryStats]:
+    """h-step Random Walk with Restart. Returns the final node per query.
+
+    Each step's pick depends on the degrees the walk has reached, so the
+    draws come from `draw(step, deg) -> (pick (B,) int, restart (B,) bool)`
+    at each step, which also holds the restart probability: for example
+    `uniform_draw(generator, restart_prob)`. (The reference splits a
+    jax.random key three ways a step; its parity test passes a draw that
+    replays that chain.)
+    """
+    B = queries.shape[0]
+    cur = queries
+    zero = torch.zeros((), dtype=torch.int32, device=queries.device)
+    misses, reads, touched = zero, zero, zero
+    for step in range(h):
+        rows, deg, cont, cache_state, n_miss, n_reads, n_touch = _read_rows(
+            cache_state, cur, cfg.use_cache, multi_read
+        )
+        misses, reads, touched = misses + n_miss, reads + n_reads, touched + n_touch
+        # a uniform neighbour of the first row (the value array is the
+        # neighbour set; a hub's continuation rows are reached on later
+        # steps through the chain row ids themselves)
+        pick, restart = draw(step, deg)
+        nxt = rows[torch.arange(B, device=rows.device), pick.long()]
+        nxt = torch.where(deg > 0, nxt, cur)  # dangling: stay
+        cur = torch.where(restart, queries, nxt)
+        cur = torch.where(queries >= 0, cur, -1)
+    stats = QueryStats(
+        touched=touched, misses=misses,
+        result_sizes=torch.full((B,), h + 1, dtype=torch.int32, device=queries.device),
+        truncated=torch.zeros(B, dtype=torch.bool, device=queries.device), reads=reads,
+    )
+    return cur, cache_state, stats
+
+
+def run_reachability(
+    cache_state: CacheState,
+    sources: torch.Tensor,
+    targets: torch.Tensor,
+    h: int,
+    n: int,
+    cfg: EngineConfig,
+    multi_read: Callable,
+) -> Tuple[torch.Tensor, CacheState, QueryStats]:
+    """h-hop Reachability by bi-directional BFS: (h + 1) // 2 hops forward
+    from the source, the rest backward from the target (the stored graph is
+    bi-directed, so one adjacency serves both). Returns reachable (B,) bool;
+    `result_sizes` counts the union of both visited sets."""
+    B = sources.shape[0]
+    layout = get_visited_layout(cfg.visited_layout)
+    h_fwd = (h + 1) // 2
+
+    def bfs(starts, hops, cache_state):
+        visited, frontier, _ = layout.init_search(starts, n, cfg.max_frontier)
+        zero = torch.zeros((), dtype=torch.int32, device=starts.device)
+        m, r, t = zero, zero, zero
+        tr = torch.zeros(B, dtype=torch.bool, device=starts.device)
+        for _ in range(hops):
+            res = expand_hop(cache_state, visited, frontier, cfg, multi_read, n)
+            visited, frontier, cache_state = res.visited, res.frontier, res.cache
+            m, r, t, tr = (m + res.probe_misses, r + res.reads,
+                           t + res.touched, tr | res.truncated)
+        return visited, cache_state, m, r, t, tr
+
+    vis_f, cache_state, m1, r1, t1, tr1 = bfs(sources, h_fwd, cache_state)
+    vis_b, cache_state, m2, r2, t2, tr2 = bfs(targets, h - h_fwd, cache_state)
+    stats = QueryStats(
+        touched=t1 + t2, misses=m1 + m2,
+        result_sizes=layout.count(layout.union(vis_f, vis_b)),
+        truncated=tr1 | tr2, reads=r1 + r2, truncated_fwd=tr1, truncated_bwd=tr2,
+    )
+    return layout.overlap_any(vis_f, vis_b), cache_state, stats
 
 
 def make_ref_multi_read(tier: StorageTier) -> Callable:

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import frontier as _frontier
 from repro_torch.kernels import ref
 from repro_torch.kernels.embedding_bag import embedding_bag as _bag_kernel
 from repro_torch.kernels.flash_attention import flash_attention
@@ -87,3 +88,30 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         w = None if weights is None else weights.to(torch.float32).contiguous()
         return _bag_kernel(table.contiguous(), indices.contiguous(), w, combine)
     return ref.embedding_bag_ref(table, indices, weights, combine)
+
+
+def frontier_expand(rows: torch.Tensor, deg: torch.Tensor, visited: torch.Tensor,
+                    use_kernel="auto") -> torch.Tensor:
+    """Single-query BFS hop on the dense layout: rows (F, W) int32, deg (F,)
+    int32, visited (n,) bool. Marks every rows[f, w] with w < deg[f] and
+    0 <= id < n IN PLACE and returns `visited` (the reference's form is
+    functional; its result equals the returned tensor). The B = 1 view of
+    the batched kernel, or of its plain version when use_kernel is False."""
+    if _pick(use_kernel):
+        return _frontier.frontier_expand(rows.contiguous(), deg.contiguous(), visited)
+    ref.frontier_expand_batched_ref(rows[None], deg[None], visited[None])
+    return visited
+
+
+def frontier_expand_packed(rows: torch.Tensor, deg: torch.Tensor, words: torch.Tensor,
+                           n: int, use_kernel="auto") -> torch.Tensor:
+    """Single-query BFS hop on the packed layout: words (ceil(n/32),) int32
+    holding the reference's uint32 bits, updated IN PLACE and returned (the
+    reference's form is functional). Ids >= n mark nothing, on both paths,
+    as the reference's plain path masks them, so padding bits stay zero."""
+    if _pick(use_kernel):
+        _frontier.frontier_expand_packed(rows.contiguous()[None], deg.contiguous()[None],
+                                         words[None], n)
+    else:
+        ref.frontier_expand_packed_ref(rows[None], deg[None], words[None], n)
+    return words

@@ -11,7 +11,11 @@ queue counters (router float state within 1e-6). Cases:
   - warm-state reuse under oversubscription: a second workload served from
     the first run's state;
   - 2x oversubscription over the whole grid is in
-    tests/test_torch_engine_oversubscribed.py.
+    tests/test_torch_engine_oversubscribed.py;
+  - the embed scheme on coordinates the port trained itself (from the
+    reference's init draws), drained and oversubscribed, against the
+    reference on its own coordinates: the same results, the EMA within
+    the coordinates' tolerance.
 
 The reference runs its `scatter` backend (its own tests hold its backends
 equal); the port runs `cuda`, whose wrappers take the plain versions on
@@ -38,6 +42,20 @@ def test_drained_rounds_match_reference(cluster, scheme, layout):
     wl = hotspot_workload(cluster["g"], r=1, n_hotspots=8, queries_per_hotspot=8, seed=2)
     (res,) = serve(cluster, scheme, layout, DRAINED, [wl])
     assert res.completed.all() and res.truncated
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("cfg", ["drained", "oversubscribed"])
+def test_embed_on_port_trained_coordinates_matches_reference(cluster, layout, cfg):
+    g = cluster["g"]
+    if cfg == "drained":
+        wl = hotspot_workload(g, r=1, n_hotspots=8, queries_per_hotspot=8, seed=2)
+        (res,) = serve(cluster, "embed", layout, DRAINED, [wl], port_trained=True)
+        assert res.completed.all()
+    else:
+        wl = uniform_workload(g, n_queries=96, seed=3)
+        (res,) = serve(cluster, "embed", layout, OVERSUBSCRIBED, [wl], port_trained=True)
+        assert res.n_dropped > 0 and res.stolen > 0
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-  - no module of `src/repro_torch` (nor `chip_smoke.py` and
-    `flash_compare.py` beside it) imports `jax` or anything of `repro`, by
-    an AST scan and by importing every module in a fresh interpreter;
+  - no module of `src/repro_torch` (nor `chip_smoke.py`,
+    `flash_compare.py` and `embed_sensitivity.py` beside it) imports
+    `jax` or anything of `repro`, by an AST scan and by importing every
+    module in a fresh interpreter;
   - entry points asked for no device raise where CUDA is absent, and run
     on the CPU only when `device="cpu"` is passed;
   - a kernel wrapper given CPU tensors runs the plain version and counts
@@ -33,7 +34,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / n for n in ("chip_smoke.py", "flash_compare.py")]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / n for n in ("chip_smoke.py", "flash_compare.py", "embed_sensitivity.py")]
 
 
 def _modules():
@@ -93,7 +95,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch import resolve_device
     from repro_torch.core.cache import make_cache
     from repro_torch.core.dispatch import make_backlog
-    from repro_torch.core.landmarks import build_landmark_index
+    from repro_torch.core.embedding import (
+        EmbedConfig, build_graph_embedding, incremental_embed_node,
+    )
+    from repro_torch.core.landmarks import build_landmark_index, incremental_add_node
     from repro_torch.core.router import Router, RouterConfig
     from repro_torch.core.storage import build_storage
     from repro_torch.configs import qwen3_4b
@@ -103,6 +108,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.serve.engine import EngineRunConfig, ServingEngine
 
     g, tier, router = _cpu_parts()
+    li = build_landmark_index(g, 2, n_landmarks=4, device="cpu")
+    emb = build_graph_embedding(li.dist_to_lm, li.landmarks, EmbedConfig(1, 2, 2),
+                                device="cpu")
     lm_cfg = qwen3_4b.smoke_cfg()
     cfg = EngineRunConfig(n_processors=2)
     calls = [
@@ -114,6 +122,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         lambda: build_storage(to_padded(g), n_shards=2),
         lambda: Router(2, RouterConfig(scheme="hash")),
         lambda: build_landmark_index(g, 2, n_landmarks=4),
+        lambda: incremental_add_node(li, g, 3),
+        lambda: build_graph_embedding(li.dist_to_lm, li.landmarks, EmbedConfig(1, 2, 2)),
+        lambda: incremental_embed_node(emb, li.dist_to_lm[3]),
         lambda: Transformer(lm_cfg),
         lambda: init_params(lm_param_specs(lm_cfg)),
     ]

@@ -1,7 +1,8 @@
 """The port's preprocessing and numpy copies against the reference's:
-`bfs_distances` and `build_landmark_index` bit-equal on `small_graph`, and
-the copied graph generators, CSR layouts, hash placement and workloads
-giving arrays equal to `repro`'s."""
+`bfs_distances`, `build_landmark_index` and the graph-update path
+`incremental_add_node` (an existing node, and new nodes past n) bit-equal
+on `small_graph`, and the copied graph generators, CSR layouts, hash
+placement and workloads giving arrays equal to `repro`'s."""
 
 import dataclasses
 
@@ -46,6 +47,49 @@ def test_build_landmark_index_matches_reference(small_graph, landmark_index):
         np.testing.assert_array_equal(getattr(out, f.name), getattr(landmark_index, f.name),
                                       err_msg=f.name)
     assert out.n_processors == landmark_index.n_processors
+
+
+def _assert_index_equal(ref, out):
+    for f in dataclasses.fields(jl.LandmarkIndex):
+        a, b = getattr(ref, f.name), getattr(out, f.name)
+        np.testing.assert_array_equal(b, a, err_msg=f.name)
+        assert a.dtype == b.dtype, f.name
+
+
+@pytest.mark.parametrize("u", [42, 0, 4799])
+def test_incremental_add_node_existing_matches_reference(small_graph, landmark_index, u):
+    ref = jl.incremental_add_node(landmark_index, small_graph, u)
+    out = tl.incremental_add_node(landmark_index, small_graph, u, device="cpu")
+    _assert_index_equal(ref, out)
+    # the recomputed row is the full preprocessing's row
+    np.testing.assert_array_equal(out.dist_to_lm[u], landmark_index.dist_to_lm[u])
+    np.testing.assert_array_equal(out.dist_to_proc[u], landmark_index.dist_to_proc[u])
+
+
+def _grown(g, csr, extra, nbrs):
+    """g plus `extra` new nodes; the last one joined to `nbrs` both ways."""
+    src, dst = csr.csr_to_edge_index(g)
+    new = g.n + extra - 1
+    src = np.concatenate([src, np.full(len(nbrs), new), nbrs])
+    dst = np.concatenate([dst, nbrs, np.full(len(nbrs), new)])
+    return csr.build_csr(g.n + extra, src, dst)
+
+
+@pytest.mark.parametrize("extra", [1, 3])
+def test_incremental_add_node_new_matches_reference(small_graph, landmark_index, extra):
+    """A node past n joined to three nodes: the tables grow (UNREACHED rows
+    for the nodes between), its row is 1 + the least of its neighbours'."""
+    nbrs = np.array([5, 1000, 4321])
+    u = small_graph.n + extra - 1
+    ref = jl.incremental_add_node(landmark_index, _grown(small_graph, jcsr, extra, nbrs), u)
+    out = tl.incremental_add_node(landmark_index, _grown(small_graph, tcsr, extra, nbrs), u,
+                                  device="cpu")
+    _assert_index_equal(ref, out)
+    assert out.dist_to_lm.shape == (u + 1, landmark_index.landmarks.shape[0])
+    np.testing.assert_array_equal(out.dist_to_lm[u],
+                                  landmark_index.dist_to_lm[nbrs].min(0) + 1)
+    assert (out.dist_to_lm[small_graph.n:u] == tl.UNREACHED).all()
+    np.testing.assert_array_equal(out.dist_to_lm[:small_graph.n], landmark_index.dist_to_lm)
 
 
 def _assert_dataclass_equal(a, b):
