@@ -25,7 +25,12 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      graph updates (§3.4): `incremental_add_node` for existing nodes and
      a new one, `incremental_embed_node` for them; h-hop reachability
      (cuda against scatter, both layouts) and a random walk (card against
-     CPU) over the preset's queries;
+     CPU) over the preset's queries; last, the paper's decoupled cluster
+     over torch.distributed (`serve.graph_serving`) at a world of one over
+     NCCL: a one-shard tier, the preset's queries admitted by the embed
+     router in 1.5x-oversubscribed bursts, then the drain, both layouts,
+     each burst bit-equal to the single-host `processor_round` over the
+     4-shard tier, its collectives counted and one burst profiled;
   3. trains the embedding of a 4,800-node preset on the card and on the
      CPU from the same draws, for four seeds, and holds the coordinates,
      each node's own loss and rel_error together, with readings after 1,
@@ -272,6 +277,17 @@ REACH_HOPS = (2, 3)
 REACH_BATCH = 16
 WALK_HOPS = 4
 WALK_SEED = 11
+# the distributed cluster at a world of one (phase 2, last): one query
+# processor of DIST_QPP slots, 1.5x-oversubscribed bursts, a ring of
+# DIST_BACKLOG; a read budget of every id one read can hold (DIST_QPP x
+# max_frontier), so nothing overflows and one round of the exchange serves
+DIST_QPP = 16
+DIST_BACKLOG = 64
+EMA_ATOL = 1e-6  # the EMA, distributed step vs single-host (tests/test_torch_graph_serving.py)
+# the EMA vs Eq. 5 written out in float64 on the host, relative to the
+# largest coordinate: float32 sums of <= 16 rows and a damped (alpha = 0.5)
+# chain of bursts stay within a few ulps; a wrong update is off by O(1)
+EMA_F64_RTOL = 1e-5
 
 
 def log(*a):
@@ -916,6 +932,227 @@ def query_types(ctx, device) -> dict:
     log(f"[walk] {WALK_HOPS}-step random walk from {fk.numel()} queries: {moved} ended off "
         f"their start, reads {int(sk.reads)}, misses {int(sk.misses)}; card {k_s:.3f} s, CPU "
         f"{c_s:.3f} s; final nodes, stats and cache equal card vs CPU")
+    return out
+
+
+class CollectiveCounts:
+    """Counts the torch.distributed calls made inside the `with` block, by
+    name (the storage read's all_to_all, the chain loop's and the merge's
+    all_reduce, the buffer's broadcast)."""
+
+    NAMES = ("all_to_all_single", "all_reduce", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self._saved = {k: getattr(dist, k) for k in self.NAMES}
+
+        def counted(name, fn):
+            def call(*a, **kw):
+                self.counts[name] += 1
+                return fn(*a, **kw)
+            return call
+
+        for k, fn in self._saved.items():
+            setattr(dist, k, counted(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for k, fn in self._saved.items():
+            setattr(dist, k, fn)
+
+
+def distributed_serving(ctx, device) -> dict:
+    """Phase 2, last: the paper's decoupled cluster over torch.distributed
+    (`serve.graph_serving`) at a world of one: NCCL with a FileStore, a
+    one-shard storage tier from phase 2's padded adjacency, one query
+    processor. Phase 2's 128 queries arrive in 1.5x-oversubscribed bursts,
+    routed by the embed router on phase 2's embedding (`make_admission_round`,
+    the buffer broadcast from rank 0), then the backlog drains; dense and
+    packed, backend cuda. Each burst is held to the single-host
+    `processor_round` on the same buffer over phase 2's 4-shard tier with
+    `multi_read_ref`: counts, every cache leaf and the stats bit-equal, the
+    EMA within EMA_ATOL (the same update as the step's, so this holds the
+    merge), and within EMA_F64_RTOL of Eq. 5 written out in float64 on the
+    host (this holds the update itself). Counted: the
+    layout's frontier launches and the collectives of the distributed runs.
+    One burst is profiled: the frontier kernel and NCCL's device work."""
+    import torch.distributed as dist
+
+    from repro_torch.core.query_engine import EngineConfig, make_ref_multi_read
+    from repro_torch.core.router import Router, RouterConfig
+    from repro_torch.core.storage import build_storage, make_serving_storage
+    from repro_torch.distributed.mesh import init_mesh
+    from repro_torch.graph.csr import to_padded
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve.engine import ema_round_update, processor_round
+    from repro_torch.serve.graph_serving import (
+        GServeConfig, make_admission_round, make_distributed_serve_step,
+        make_processor_caches,
+    )
+
+    g, tier4, wl, emb, base = ctx["g"], ctx["tier"], ctx["wl"], ctx["emb"], ctx["base"]
+    t = time.perf_counter()
+    adj = to_padded(g, max_degree=64)
+    tier1 = build_storage(adj, n_shards=1, device=device)
+    t_tier = time.perf_counter() - t
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dist_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    mesh, dev = init_mesh((1, 1), ("data", "model"), device, store=dist.FileStore(store, 1),
+                          rank=0, world_size=1)
+    if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+        raise AssertionError(f"distributed serving on {dev}: backend {dist.get_backend()}")
+    coords = torch.from_numpy(emb.coords).to(dev)
+    D = coords.shape[1]
+    nodes = wl.query_nodes.astype(np.int32)
+    arrivals = DIST_QPP + DIST_QPP // 2
+    bursts = -(-nodes.size // arrivals)
+    out = dict(world=dist.get_world_size(), backend=dist.get_backend(), queries=int(nodes.size),
+               arrivals_per_burst=arrivals, queries_per_proc=DIST_QPP, backlog=DIST_BACKLOG,
+               tier_build_s=t_tier, layouts=[])
+    for layout, kind in KERNELS_BY_LAYOUT.items():
+        cfg = GServeConfig(
+            n_nodes=g.n, n_rows=adj.n_rows, row_width=adj.max_degree, n_storage_shards=1,
+            queries_per_proc=DIST_QPP, hops=base.hops, max_frontier=base.max_frontier,
+            cache_sets=base.cache_sets, cache_ways=base.cache_ways,
+            read_capacity=DIST_QPP * base.max_frontier, read_retry=1,
+            chain_depth=base.chain_depth, expand_backend="cuda", visited_layout=layout,
+            embed_dim=D)
+        router = Router(1, RouterConfig(scheme="embed"), embedding=emb, seed=3, device=dev)
+        admission, init_backlog = make_admission_round(router, mesh, cfg, DIST_BACKLOG)
+        step = make_distributed_serve_step(mesh, cfg)
+        inputs = dict(make_serving_storage(tier1, mesh.axis_index("model"), dev),
+                      coords=coords, ema=torch.zeros((1, D), dtype=torch.float32, device=dev),
+                      cache=make_processor_caches(mesh, cfg, dev))
+        rstate, backlog = router.init_state(), init_backlog()
+        record, served, dropped, step_s = [], 0, 0, 0.0
+        LAUNCHES.clear()  # counts of the distributed runs only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCounts() as calls:
+            b = 0
+            while b < bursts or int(backlog.depth()) > 0:
+                fresh = np.full(arrivals, -1, np.int32)
+                chunk = nodes[b * arrivals:(b + 1) * arrivals]
+                fresh[:chunk.size] = chunk
+                qids = torch.arange(b * arrivals, (b + 1) * arrivals, dtype=torch.int32,
+                                    device=dev)
+                qbuf, adm = admission(rstate, backlog, torch.from_numpy(fresh).to(dev), qids)
+                rstate, backlog = adm.rstate, adm.backlog
+                dist.broadcast(qbuf, src=0)  # the router's rank sends every rank its row
+                ins = dict(inputs, queries=qbuf[mesh.rank])
+                ts, a2a = time.perf_counter(), calls.counts["all_to_all_single"]
+                counts, ema, cache, stats = step(ins)
+                torch.cuda.synchronize()
+                step_s += time.perf_counter() - ts
+                links = (calls.counts["all_to_all_single"] - a2a) // (2 * cfg.read_retry)
+                record.append((ins, counts, ema, cache, stats, links))
+                inputs["cache"], inputs["ema"] = cache, ema
+                served += int(adm.placed.sum())
+                dropped += int(adm.n_dropped)
+                b += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = dict(LAUNCHES)
+        what = f"distributed {layout}"
+        if counted.get(kind, 0) == 0 or sum(counted.values()) != counted[kind]:
+            raise AssertionError(f"{what}: launches {counted}")
+        if served + dropped != nodes.size or int(backlog.depth()) != 0:
+            raise AssertionError(f"{what}: served {served} + dropped {dropped} of {nodes.size}")
+        # the single-host step on the same buffers, over the 4-shard tier
+        ecfg = EngineConfig(max_frontier=cfg.max_frontier, chain_depth=cfg.chain_depth,
+                            expand_backend="cuda", visited_layout=layout)
+        multi_read = make_ref_multi_read(tier4)
+        cache_h, ema_h = make_processor_caches(mesh, cfg, dev), record[0][0]["ema"]
+        coords64 = emb.coords.astype(np.float64)
+        ema64 = record[0][0]["ema"][0].cpu().numpy().astype(np.float64)
+        ema64_tol = EMA_F64_RTOL * max(1.0, float(np.abs(coords64).max()))
+        ema_err_max = ema64_err_max = 0.0
+        touched = reads = 0
+        host_s = 0.0
+        for i, (ins, counts, ema, cache, stats, _) in enumerate(record):
+            q = ins["queries"]
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            counts_h, cache_h, st, _ = processor_round(cache_h, q, h=cfg.hops, n=cfg.n_nodes,
+                                                       ecfg=ecfg, multi_read=multi_read)
+            torch.cuda.synchronize()
+            host_s += time.perf_counter() - ts
+            delta = torch.zeros_like(ema_h)
+            delta[0] = ema_round_update(ema_h, 0, coords, q, cfg.alpha) - ema_h[0]
+            ema_h = ema_h + delta
+            stats_h = torch.stack([st.touched, st.misses, st.reads]).to(torch.float32)
+            if not torch.equal(counts, counts_h):
+                raise AssertionError(f"{what} burst {i}: counts differ from the single host's")
+            _same_fields(cache, cache_h, f"{what} burst {i} cache, distributed vs single host")
+            if not torch.equal(stats, stats_h):
+                raise AssertionError(f"{what} burst {i}: stats {stats.tolist()} vs "
+                                     f"{stats_h.tolist()}")
+            ema_err = float((ema - ema_h).abs().max())
+            if not ema_err <= EMA_ATOL:
+                raise AssertionError(f"{what} burst {i}: EMA {ema_err} apart")
+            qn = q.cpu().numpy()
+            ok = qn[qn >= 0]
+            mean64 = coords64[ok].mean(0) if ok.size else np.zeros(D)
+            ema64 = cfg.alpha * ema64 + (1.0 - cfg.alpha) * mean64
+            ema64_err = float(np.abs(ema[0].cpu().numpy() - ema64).max())
+            if not ema64_err <= ema64_tol:
+                raise AssertionError(f"{what} burst {i}: EMA {ema64_err} from Eq. 5 in float64 "
+                                     f"(tolerance {ema64_tol})")
+            ema_err_max = max(ema_err_max, ema_err)
+            ema64_err_max = max(ema64_err_max, ema64_err)
+            touched += int(st.touched)
+            reads += int(st.reads)
+        links = calls.counts["all_to_all_single"] // (2 * cfg.read_retry)
+        # the burst of the fewest chain links profiled (a trace of many
+        # links takes long to read): the frontier kernel and NCCL's work
+        prof_burst = min((r for r in range(len(record)) if record[r][5] > 0),
+                         key=lambda r: record[r][5])
+        ins0 = record[prof_burst][0]
+        symbol = KERNELS[kind][2]
+        for tries in range(1, PROFILE_TRIES + 1):
+            by_name = device_ops(lambda: step(ins0))
+            nccl = {k: v for k, v in by_name.items() if "nccl" in k.lower()}
+            k_calls = sum(c for name, (_, c) in by_name.items() if symbol in name)
+            if nccl and k_calls:
+                break
+            log(f"[profile] try {tries} of {PROFILE_TRIES}: {symbol} {k_calls}, nccl {nccl}")
+        else:
+            raise AssertionError(f"{what}: no profile shows both {symbol} and NCCL's work")
+        cell = dict(
+            layout=layout, kernel=kind, launches=counted[kind], rounds=len(record),
+            served=served, dropped=dropped, wall_s=wall, qps=served / wall,
+            step_s=step_s, step_qps=served / step_s, single_host_s=host_s,
+            single_host_qps=served / host_s, touched=touched, reads=reads,
+            hit_rate=(touched - reads) / touched, chain_links=links,
+            ema_err=ema_err_max, ema_f64_err=ema64_err_max, ema_f64_tol=ema64_tol,
+            collectives=dict(calls.counts),
+            collectives_per_link=(calls.counts["all_to_all_single"]
+                                  + calls.counts["all_reduce"]) / links,
+            links_per_burst=[r[5] for r in record],
+            profile=dict(burst=prof_burst, links=record[prof_burst][5], kernel_calls=k_calls,
+                         nccl={k[:80]: dict(us=us, calls=c) for k, (us, c) in nccl.items()},
+                         copies={k[:80]: dict(us=us, calls=c) for k, (us, c) in by_name.items()
+                                 if "Memcpy" in k}))
+        out["layouts"].append(cell)
+        log(f"[dist] {layout:>6s}: {served} served, {dropped} dropped over {len(record)} rounds "
+            f"at a world of {out['world']} ({out['backend']}); qps {cell['qps']:.2f} (step "
+            f"alone {cell['step_qps']:.2f}, single-host processor_round {cell['single_host_qps']:.2f}); "
+            f"hit {cell['hit_rate']:.4f}; EMA {ema_err_max:.3g} from the single host's, "
+            f"{ema64_err_max:.3g} from Eq. 5 in float64 (tolerance {ema64_tol:.3g}); "
+            f"{kind} launches {counted[kind]}; {links} chain links, "
+            f"collectives {calls.counts} ({cell['collectives_per_link']:.2f} a link); every burst "
+            f"equal to the single host's over the 4-shard tier; profile of burst {prof_burst} "
+            f"({record[prof_burst][5]} links): {k_calls} "
+            f"{symbol} launches, NCCL on the card: " + "; ".join(
+                f"{k[:40]} {us:.1f} us x{c}" for k, (us, c) in nccl.items())
+            + f"; {nvidia_smi()}")
+    dist.destroy_process_group()
     return out
 
 
@@ -2254,8 +2491,10 @@ def main() -> int:
     routing = dict(embedding=ctx["training"], graph_updates=graph_updates(ctx, device))
     phase_done("graph updates")
     routing["query_types"] = query_types(ctx, device)
-    del ctx
     phase_done("reachability and random walk")
+    routing["distributed"] = distributed_serving(ctx, device)
+    del ctx
+    phase_done("distributed serving")
     routing["card_vs_cpu"] = oversubscribed(device)
     phase_done("oversubscribed card vs CPU")
     lm, kernels["flash_attention"]["launches"] = lm_serving(device)

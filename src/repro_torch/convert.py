@@ -79,6 +79,29 @@ def cache_state(state, device: DeviceLike = None) -> CacheState:
                          for f in dataclasses.fields(CacheState)})
 
 
+def processor_cache(caches: dict, proc: int, device: DeviceLike = None) -> CacheState:
+    """Processor `proc`'s slice of the reference's stacked caches (the
+    dict of (n_proc, ...) leaves that its `make_processor_caches` and
+    serve step give)."""
+    return CacheState(**{f.name: tensor(np.asarray(caches[f.name])[proc], device)
+                         for f in dataclasses.fields(CacheState)})
+
+
+def serve_inputs(inputs: dict, proc: int, shard: int, device: DeviceLike = None) -> dict:
+    """One rank's inputs of the distributed serve step from the reference's
+    (whole-mesh) inputs dict: processor `proc`'s queries and cache, storage
+    shard `shard` of `make_serving_storage`'s rows / deg / cont, and the
+    replicated placement tables, coordinates and EMA. Keys absent from
+    `inputs` are left out."""
+    per_proc = {"queries": lambda a: a[proc], "rows": lambda a: a[shard],
+                "deg": lambda a: a[shard], "cont": lambda a: a[shard]}
+    out = {k: tensor(per_proc.get(k, lambda a: a)(np.asarray(v)), device)
+           for k, v in inputs.items() if k != "cache"}
+    if "cache" in inputs:
+        out["cache"] = processor_cache(inputs["cache"], proc, device)
+    return out
+
+
 def router_state(state, device: DeviceLike = None) -> RouterState:
     return RouterState(load=tensor(state.load, device), ema=tensor(state.ema, device),
                        rr=tensor(state.rr, device))

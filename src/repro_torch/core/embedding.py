@@ -13,8 +13,9 @@ its inputs; `build_graph_embedding` returns numpy, as the reference does.
 
 The inits draw Gaussian noise (the reference from `jax.random`, whose bits
 torch cannot reproduce). Each function takes its noise as an optional
-tensor; without one it draws from an explicit `torch.Generator` on the
-run's device. The tests pass the reference's own draws.
+tensor; without one it draws from an explicit `torch.Generator` on the CPU
+and moves the draw to the run's device, so one seed gives the same init on
+every device. The tests pass the reference's own draws.
 
 Outputs coordinates (n, D) float32 -- the O(nD) router state.
 """
@@ -66,13 +67,14 @@ def _rel_err_loss(pred_d: torch.Tensor, true_d: torch.Tensor, eps: float) -> tor
 def _noise(shape: Tuple[int, int], noise: Optional[torch.Tensor],
            generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """The init's standard normal draw: `noise` if given (checked against
-    `shape`), else a draw from `generator` (default: seed 0 on `device`)."""
+    `shape`), else a draw from `generator` (default: a CPU generator at
+    seed 0), moved to `device`."""
     if noise is not None:
         if tuple(noise.shape) != tuple(shape):
             raise ValueError(f"noise of shape {tuple(noise.shape)}, expected {tuple(shape)}")
         return noise.to(device=device, dtype=torch.float32)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = torch.Generator().manual_seed(0)
     return torch.randn(shape, generator=generator, device=generator.device).to(device)
 
 
@@ -175,10 +177,10 @@ def build_graph_embedding(
     """Full Algorithm 3 on `device`. The landmark BFS distances are an input
     (the landmark index's: one BFS pass serves both schemes). lm_noise
     (L, dim) and node_noise (n, dim) are the inits' draws; those not given
-    come from one generator seeded with `config.seed` on the device, the
-    landmarks' draw first."""
+    come from one CPU generator seeded with `config.seed`, the landmarks'
+    draw first, so a seed gives the same init on every device."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    gen = torch.Generator().manual_seed(config.seed)
     landmarks = np.asarray(landmarks)
     dist = torch.from_numpy(np.ascontiguousarray(dist_to_lm, dtype=np.int32)).to(dev)
     lm_idx = torch.from_numpy(landmarks.astype(np.int64)).to(dev)
@@ -197,13 +199,13 @@ def incremental_embed_node(
     device: DeviceLike = None, noise: Optional[torch.Tensor] = None,
 ) -> np.ndarray:
     """Embed ONE new node against the existing landmark coordinates (graph
-    update path, §3.4.2). noise: (1, dim) init draw; without one, a
-    generator seeded with 1 on the device (the reference's fixed key 1).
+    update path, §3.4.2). noise: (1, dim) init draw; without one, a CPU
+    generator seeded with 1 (the reference's fixed key 1).
     The loss's mean is over this node's valid pairs."""
     dev = resolve_device(device)
     steps = steps or emb.config.node_steps
     dist = torch.from_numpy(np.asarray(d_to_landmarks)[None, :].astype(np.int32)).to(dev)
     x = embed_nodes(dist, torch.from_numpy(np.asarray(emb.lm_coords, np.float32)).to(dev),
                     steps, emb.config.lr, noise=noise,
-                    generator=torch.Generator(device=dev).manual_seed(1))
+                    generator=torch.Generator().manual_seed(1))
     return x.cpu().numpy()[0]

@@ -33,6 +33,7 @@ import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.cache import CacheState
@@ -53,6 +54,10 @@ class EngineConfig:
     # "dense" ((B, n) bool) | "packed" ((B, ceil(n/32)) words); semantics
     # are layout-invariant
     visited_layout: str = "dense"
+    # the process group whose ranks must run the same number of chain links
+    # (their multi_read holds collectives): each link's decision is then the
+    # group's all_reduce(MAX) of the flag. None: this process decides alone.
+    sync: Optional[dist.ProcessGroup] = None
 
 
 class HopResult(NamedTuple):
@@ -131,6 +136,16 @@ def _read_rows(
             uniq.sum(dtype=torch.int32), n_touch)
 
 
+def _any(flag: torch.Tensor, group: Optional[dist.ProcessGroup]) -> bool:
+    """`flag` (a () bool) on the host; with a group, true when it is true on
+    any of the group's ranks (one all_reduce, still one host sync)."""
+    if group is None:
+        return bool(flag)
+    f = flag.to(torch.int32).reshape(1)
+    dist.all_reduce(f, op=dist.ReduceOp.MAX, group=group)
+    return bool(f.item())
+
+
 def _first_f(newly: torch.Tensor, F: int) -> torch.Tensor:
     """(B, n) bool -> (B, F) int32: the first F set ids of each row in
     ascending order, -1 padded (a fixed-shape `nonzero`)."""
@@ -163,7 +178,7 @@ def expand_hop(
     # in place, so it starts from a clone (`visited` is needed below)
     new_mask = visited.clone()
     ids = frontier.reshape(-1)
-    go = bool((ids >= 0).any())
+    go = _any((ids >= 0).any(), cfg.sync)
     it = 0
     while go and it < cfg.chain_depth:
         rows, deg, cont, cache_state, n_probe_miss, n_reads, n_touch = _read_rows(
@@ -174,7 +189,7 @@ def expand_hop(
         # continuation rows (hubs whose adjacency spans several rows) are
         # drained in the same hop, as in Algorithm 5's per-hop multi_read
         ids = cont
-        go = bool((ids >= 0).any())
+        go = _any((ids >= 0).any(), cfg.sync)
         it += 1
 
     newly_dense = layout.to_dense(layout.minus(new_mask, visited), n)

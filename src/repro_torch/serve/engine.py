@@ -45,7 +45,7 @@ from repro_torch.core.dispatch import (
 )
 from repro_torch.core.query_engine import EngineConfig, QueryStats, run_neighbor_aggregation
 from repro_torch.core.router import Router, RouterState
-from repro_torch.core.storage import StorageTier, multi_read_ref
+from repro_torch.core.storage import StorageTier, multi_read_ref, sharded_multi_read
 from repro_torch.core.workloads import Workload
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -69,6 +69,63 @@ def processor_round(
         cache, queries, h=h, n=n, cfg=ecfg, multi_read=multi_read,
         touched_map=touched_map,
     )
+
+
+def ema_round_update(
+    ema: torch.Tensor, me: int, coords: torch.Tensor, queries: torch.Tensor, alpha: float
+) -> torch.Tensor:
+    """Eq. 5 applied once per round over the executed batch's mean coords.
+
+    Returns processor `me`'s new EMA row; the caller merges it into the
+    replicated (P, D) table (a summed delta on the distributed path). The
+    mean divides by a (1,) tensor: CUDA divides by a Python number as a
+    multiply by its reciprocal."""
+    okq = (queries >= 0)[:, None]
+    qc = coords[queries.clamp(min=0).long()]
+    n_ok = okq.sum(dtype=torch.int32).clamp(min=1).reshape(1)
+    mean_new = torch.where(okq, qc, 0.0).sum(0) / n_ok
+    return alpha * ema[me] + (1.0 - alpha) * mean_new
+
+
+def make_retrying_multi_read(
+    local_rows: torch.Tensor,
+    local_deg: torch.Tensor,
+    local_cont: torch.Tensor,
+    owner_lut: torch.Tensor,
+    loc_lut: torch.Tensor,
+    *,
+    group,
+    n_shards: int,
+    capacity: int,
+    row_width: int,
+    retries: int,
+) -> Callable:
+    """Bounded-retry `sharded_multi_read` over the storage `group`.
+
+    Requests dropped by the per-(proc, shard) capacity are issued again.
+    Every rank runs exactly `retries` rounds of the exchange, even when
+    nothing is pending anywhere: the collectives must match across the
+    group, and the reference runs the same fixed count. A request still
+    unserved after the last round reads as a row of -1 with deg 0 and cont
+    -1, as in the reference."""
+
+    def multi_read(ids: torch.Tensor):
+        out_rows = torch.full(ids.shape + (row_width,), -1, dtype=torch.int32, device=ids.device)
+        out_deg = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
+        out_cont = torch.full(ids.shape, -1, dtype=torch.int32, device=ids.device)
+        pending = ids
+        for _ in range(retries):
+            r, d, c, served = sharded_multi_read(
+                pending, local_rows, local_deg, local_cont, owner_lut, loc_lut,
+                group=group, n_shards=n_shards, capacity=capacity,
+            )
+            out_rows = torch.where(served[:, None], r, out_rows)
+            out_deg = torch.where(served, d, out_deg)
+            out_cont = torch.where(served, c, out_cont)
+            pending = torch.where(served, -1, pending)
+        return out_rows, out_deg, out_cont
+
+    return multi_read
 
 
 class AdmissionRound(NamedTuple):

@@ -191,6 +191,38 @@ def test_default_draws_are_seeded(cluster):
                                  lm_noise=torch.zeros(3, 6))
 
 
+def test_default_draw_does_not_depend_on_the_device(cluster, monkeypatch):
+    """Without noise the inits draw on a CPU generator and move the draw to
+    the run's device, so one seed gives the same init on every device: a
+    device with no generator of its own ("meta") still gets the draw, and
+    every default draw is the CPU generator's (the explicit draws that
+    `chip_smoke.py` phase 3 passes to the card and the CPU)."""
+    drawn_on = []
+    randn = torch.randn
+
+    def spy(*args, generator=None, **kw):
+        drawn_on.append(generator.device)
+        return randn(*args, generator=generator, **kw)
+
+    meta = te._noise((5, 3), None, None, torch.device("meta"))
+    assert meta.is_meta and meta.shape == (5, 3)
+    np.testing.assert_array_equal(
+        te._noise((5, 3), None, None, torch.device("cpu")).numpy(),
+        torch.randn((5, 3), generator=torch.Generator().manual_seed(0)).numpy())
+    li = cluster["li"]
+    cfg = te.EmbedConfig(dim=6, lm_steps=20, node_steps=10, seed=3)
+    monkeypatch.setattr(torch, "randn", spy)
+    default = te.build_graph_embedding(li.dist_to_lm, li.landmarks, cfg, device="cpu")
+    monkeypatch.undo()
+    assert drawn_on == [torch.device("cpu")] * 2
+    gen = torch.Generator().manual_seed(cfg.seed)
+    lm_noise = torch.randn((len(li.landmarks), cfg.dim), generator=gen)
+    node_noise = torch.randn((li.dist_to_lm.shape[0], cfg.dim), generator=gen)
+    given = te.build_graph_embedding(li.dist_to_lm, li.landmarks, cfg, device="cpu",
+                                     lm_noise=lm_noise, node_noise=node_noise)
+    np.testing.assert_array_equal(default.coords, given.coords)
+
+
 def test_rel_error_is_the_references(cluster):
     """`rel_error` is numpy on both sides: bit-equal on the same coordinates."""
     ref, li = cluster["ge"], cluster["li"]
