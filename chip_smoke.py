@@ -41,9 +41,22 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      4 prompts of 4,096 tokens prefilled, then 64 greedy decode steps;
      checks 36 flash launches per prefill and none in decode, finite
      logits, and that teacher-forced decode of the last prompt token
-     gives the prefill's last logits; profiles one prefill;
+     gives the prefill's last logits; profiles one prefill; then serves
+     the MoE LMs the same way: qwen2-moe-a2.7b whole (24 layers, 60
+     experts computed as 64, top-4, a shared expert; 30.30 GB) and
+     dbrx-132b at full width cut to 4 of its 40 layers (28.54 GB), each
+     at its capacity factor: one flash launch a layer, the share of
+     assignments dropped in each layer, a repeat bit-equal, bf16
+     teacher-forced decode against a drop-free prefill (printed), a
+     profile by kind (expert GEMMs, dispatch, router, flash, the rest),
+     one MoE layer with no host sync and held in bf16 against float32;
+     then both served models again in float32, drop-free, where
+     teacher-forced decode must route as prefill in every layer and give
+     its logits within a tolerance;
   5. runs a 2-layer Qwen3-4B at full width in float32 on the card and on
      the CPU and holds the prefill's logits and KV against each other;
+     and a 2-layer qwen2-moe-a2.7b likewise, whose routing (top-k, ranks,
+     kept assignments) must be equal on every token;
   6. aggregates (sum, mean, max, min, std) width-75 messages over
      synthetic edges at the repo's ogb_products shape (2,449,029 nodes,
      61,859,140 edges, power-law skewed, 2 % padded): 7 segment_sum launches
@@ -72,6 +85,7 @@ Needs one CUDA device; exits non-zero without one. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -121,10 +135,14 @@ PROFILE_TRIES = 5
 
 # flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
 # causal, window, softcap, dtype); the first is the Qwen3-4B prefill shape
-# of one request, whose numbers go into the kernel line; D 77 takes the bf16
-# kernel's element-wise fill (D % 8 != 0), every other bf16 shape cp.async
+# of one request, whose numbers go into the kernel line, then the MoE LMs'
+# (qwen2-moe-a2.7b: 16/16 heads, group 1; dbrx-132b: 48/8, group 6); D 77
+# takes the bf16 kernel's element-wise fill (D % 8 != 0), every other bf16
+# shape cp.async
 ATTN_SHAPES = [
     ("qwen3-4b prefill", 1, 32, 8, 4096, 4096, 128, True, None, None, torch.bfloat16),
+    ("qwen2-moe prefill", 1, 16, 16, 4096, 4096, 128, True, None, None, torch.bfloat16),
+    ("dbrx prefill", 1, 48, 8, 4096, 4096, 128, True, None, None, torch.bfloat16),
     ("gemma2-like local", 1, 32, 16, 8192, 8192, 128, True, 4096, 50.0, torch.bfloat16),
     ("float32 GQA", 1, 8, 2, 1024, 1024, 128, True, None, None, torch.float32),
     ("MQA", 2, 16, 1, 2048, 2048, 128, True, None, None, torch.bfloat16),
@@ -253,6 +271,17 @@ CPU_DIN_BATCH = 4096
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_MAX_SEQ = 4, 4096, 64, 4160
 TEACHER_FORCED_REL_TOL = 0.1  # relative L2 error, bf16 decode vs prefill (PERF.md)
 CARD_VS_CPU_TOL = 1e-3  # max error over max |value|, float32 (PERF.md)
+# MoE serving (phase 4) and its card-vs-CPU check (phase 5): DBRX at full
+# width keeps MOE_DBRX_LAYERS of its 40 layers (28.54 GB in bf16)
+MOE_DBRX_LAYERS = 4
+MOE_CPU_PROMPT = 256
+# one MoE layer in bf16 against float32, max error over max |output|: the
+# CPU tests' BF16_TOL (tests/test_torch_moe.py)
+MOE_BF16_TOL = 2.0 ** -5
+# relative L2 error, float32 teacher-forced decode vs prefill at the served
+# depth (PERF.md): the model's own sensitivity, a prefill whose input moved
+# by one ulp, reads 1.0e-3 to 2.8e-3 there, which no tolerance can undercut
+TEACHER_FORCED_F32_REL_TOL = 1e-2
 
 # graph routing (phases 2 and 3)
 SCHEMES = ("hash", "landmark", "embed", "next_ready")
@@ -1654,32 +1683,16 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def lm_serving(device):
-    """Phase 4: Qwen3-4B (36 layers, d_model 2560, vocab 151,936, bf16) with
-    random weights from a seeded generator on the card. The main path: 4
-    prompts of 4,096 tokens through `prefill_forward`, the KV stack copied
-    into a decode cache, 64 greedy `serve_step`s; launch counts read around
-    prefill and decode. Then a teacher-forced check and a profiled prefill."""
-    from repro_torch.configs import qwen3_4b
-    from repro_torch.data.tokens import token_batch
+def serve_main_path(model, tokens) -> dict:
+    """The LM's main path, launch counts from 0: `prefill_forward` over
+    `tokens` (B, S), the KV stack copied into a decode cache, LM_DECODE
+    greedy `serve_step`s. Checks one flash launch a layer in prefill and
+    none in decode, finite logits and the cache's length. Returns the
+    prefill's wall and last logits, each step's ms (CUDA events), the peak
+    memory and the launches (prefill's flash alone, and all)."""
     from repro_torch.kernels.build import LAUNCHES
-    from repro_torch.models.param import param_bytes, param_count
-    from repro_torch.models.transformer import Transformer, lm_param_specs
 
-    cfg = qwen3_4b.model_cfg()
-    t = time.perf_counter()
-    model = Transformer(cfg, generator=torch.Generator(device=device).manual_seed(0),
-                        device=device)
-    torch.cuda.synchronize()
-    specs = lm_param_specs(cfg)
-    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
-        f"{param_count(specs)} parameters, {param_bytes(specs) / 1e9:.2f} GB in bf16, "
-        f"drawn on the card in {time.perf_counter() - t:.1f} s")
-    B, S = LM_BATCH, LM_PROMPT
-    tokens = torch.from_numpy(token_batch(0, B, S, cfg.vocab)["tokens"]).to(device)
-
-    # the main path, counts from 0
+    (B, S), cfg = tokens.shape, model.cfg
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     torch.cuda.synchronize()
@@ -1714,12 +1727,41 @@ def lm_serving(device):
         raise AssertionError("non-finite logits in prefill or decode")
     if cache["layers"][0]["pos"] != S + LM_DECODE:
         raise AssertionError(f"cache at {cache['layers'][0]['pos']}")
+    return dict(prefill_s=prefill_s, last=last, step_ms=step_ms, peak_gb=peak_gb,
+                flash_prefill=n_prefill, launches=launches)
+
+
+def lm_serving(device):
+    """Phase 4: Qwen3-4B (36 layers, d_model 2560, vocab 151,936, bf16) with
+    random weights from a seeded generator on the card. The main path: 4
+    prompts of 4,096 tokens through `prefill_forward`, the KV stack copied
+    into a decode cache, 64 greedy `serve_step`s; launch counts read around
+    prefill and decode. Then a teacher-forced check and a profiled prefill."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models.param import param_bytes, param_count
+    from repro_torch.models.transformer import Transformer, lm_param_specs
+
+    cfg = qwen3_4b.model_cfg()
+    t = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    torch.cuda.synchronize()
+    specs = lm_param_specs(cfg)
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{param_count(specs)} parameters, {param_bytes(specs) / 1e9:.2f} GB in bf16, "
+        f"drawn on the card in {time.perf_counter() - t:.1f} s")
+    B, S = LM_BATCH, LM_PROMPT
+    tokens = torch.from_numpy(token_batch(0, B, S, cfg.vocab)["tokens"]).to(device)
+    main = serve_main_path(model, tokens)
+    prefill_s, step_ms, peak_gb = main["prefill_s"], main["step_ms"], main["peak_gb"]
+    n_prefill, launches = main["flash_prefill"], main["launches"]
     log(f"[lm] main path: prefill {B} x {S} tokens in {prefill_s:.3f} s "
         f"({B * S / prefill_s:.0f} tokens/s), flash launches {n_prefill}; {LM_DECODE} greedy "
         f"decode steps: median {np.median(step_ms):.3f} ms, mean {np.mean(step_ms):.3f} ms "
         f"per step ({B} sequences), flash launches {launches['flash_attention'] - n_prefill}; "
         f"peak memory {peak_gb:.2f} GB; all logits finite")
-    del cache, logits
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1804,6 +1846,563 @@ def lm_card_vs_cpu(device):
         f"kernel) vs CPU (plain version), max error over max |value|: logits "
         f"{out['logits']:.3g}, k {out['k']:.3g}, v {out['v']:.3g} (tol {CARD_VS_CPU_TOL})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4, MoE: qwen2-moe-a2.7b whole and DBRX at full width, cut in depth;
+# phase 5, MoE: the routing on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def draw_lm(cfg, device, full_depth=None):
+    """A Transformer of `cfg`, random weights drawn on `device` from a
+    generator seeded with 0 (as `Transformer(cfg, generator=...)` draws
+    them). With `full_depth`, the published depth of a config cut to fewer
+    layers, each stacked matrix is drawn at the full model's scale: the
+    reference takes a stacked leaf's fan-in from its stack axis (ROADMAP,
+    "Stacked fan-in"), so the cut alone would draw it sqrt(full / cut)
+    times wider."""
+    from repro_torch.models.param import init_params, tree_map
+    from repro_torch.models.transformer import Transformer, lm_param_specs, unstack_layers
+
+    specs = lm_param_specs(cfg)
+    if full_depth is not None:
+        scale = float(1.0 / np.sqrt(full_depth // cfg.group_size))
+        specs = tree_map(lambda p: dataclasses.replace(p, scale=scale)
+                         if p.axes[0] == "stack" and p.init == "normal" and p.scale is None
+                         else p, specs)
+    params = init_params(specs, torch.Generator(device=device).manual_seed(0), device)
+    return Transformer(cfg, params=unstack_layers(params, cfg), device=device)
+
+
+class RouteLog:
+    """While active, `repro_torch.models.moe.route` (which `moe_ffn` calls
+    by name) is wrapped and each call's `Routing` kept, in call order: one a
+    layer and a forward. Nothing syncs until the figures are read."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe.route
+
+        def logged(*args, **kwargs):
+            self.calls.append(self._route(*args, **kwargs))
+            return self.calls[-1]
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+
+class LayerLog:
+    """While active, `repro_torch.models.transformer._layer` and `_attention`
+    (each called by name) are wrapped, and each call's last position kept,
+    (B, d) in call order, one a layer and a forward: the layer's output in
+    `x`, its attention's in `attn`."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+
+        self.x, self.attn, self._fns = [], [], (T._layer, T._attention)
+        layer, attention = self._fns
+
+        def logged_layer(*args, **kwargs):
+            out = layer(*args, **kwargs)
+            self.x.append(out[0][:, -1].clone())
+            return out
+
+        def logged_attention(*args, **kwargs):
+            out = attention(*args, **kwargs)
+            self.attn.append(out[0][:, -1].clone())
+            return out
+
+        T._layer, T._attention = logged_layer, logged_attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+
+        T._layer, T._attention = self._fns
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matrix products in float32 (TF32 off) while active."""
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def ties(r, k: int):
+    """(tokens whose k-th and (k+1)-th probabilities tie, of them those
+    tied at 0), as (T,) bool masks: where top-k takes the lower index."""
+    top = torch.sort(r.probs, dim=-1, descending=True).values
+    tie = top[:, k - 1] == top[:, k]
+    return tie, tie & (top[:, k] == 0)
+
+
+def routing_figures(r, k: int) -> dict:
+    """One layer's routing: assignments dropped, the capacity, the busiest
+    expert's assignments, and the tokens tied at the k-th probability."""
+    tie, tie_0 = ties(r, k)
+    load = torch.zeros(r.probs.shape[1], dtype=torch.int64, device=r.probs.device)
+    load.scatter_add_(0, r.idx.reshape(-1), torch.ones_like(r.idx.reshape(-1)))
+    return dict(assignments=r.keep.numel(), dropped=int((~r.keep).sum()),
+                capacity=r.capacity, busiest=int(load.max()), ties=int(tie.sum()),
+                ties_at_0=int(tie_0.sum()))
+
+
+# device time of an MoE prefill by kind: a kernel goes to the first kind
+# among whose aten ops is the op that launched it or one of its callers
+# (aten::index and index_put_ include the rank's scatter of T k ids)
+MOE_KINDS = (("expert GEMMs", ("aten::bmm",)),
+             ("router softmax, sort and rank", ("aten::_softmax", "aten::sort",
+                                                "aten::searchsorted", "aten::scatter_add_",
+                                                "aten::masked_fill_")),
+             ("dispatch scatter and gather", ("aten::index", "aten::index_put_")),
+             ("other GEMMs", ("aten::mm", "aten::addmm")))
+
+
+def profile_moe(what, fn, wall_ms=None) -> dict:
+    """`fn()` under torch.profiler, its device time by kind: the flash
+    kernel by name (it is launched through ctypes, outside any aten op),
+    then MOE_KINDS by the aten op that launched each kernel (the CPU op of
+    its Kineto event's linked correlation id) and that op's callers, the
+    rest "other"; kernels that no aten op launched count as other, and
+    their time is logged. Profiled again, up to PROFILE_TRIES, while the
+    trace holds no flash kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flash = KERNELS["flash_attention"][2]
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        # device events as Kineto gives them: name, us, the correlation id
+        # of the CPU op that launched them
+        device = [(k.name(), k.duration_ns() / 1e3, k.linked_correlation_id())
+                  for k in prof.profiler.kineto_results.events()
+                  if k.device_type() == DeviceType.CUDA and "spin_kernel" not in k.name()]
+        if any(flash in n for n, _, _ in device):
+            break
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no {flash}")
+    # a CPU op's FunctionEvent id is its correlation id; several nested ops
+    # can share one, so the innermost (the longest chain of callers) wins
+    launcher = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            chain, p = [], e
+            while p is not None:
+                chain.append(p.name)
+                p = p.cpu_parent
+            if len(chain) > len(launcher.get(e.id, ())):
+                launcher[e.id] = chain
+    split = dict.fromkeys(["flash_attention", *(k for k, _ in MOE_KINDS), "other"], 0.0)
+    unclaimed = 0.0
+    for name, us, corr in device:
+        chain = launcher.get(corr)
+        if flash in name:
+            kind = "flash_attention"
+        elif chain is None:
+            kind, unclaimed = "other", unclaimed + us / 1e3
+        else:
+            kind = next((k for k, ops in MOE_KINDS if set(chain).intersection(ops)), "other")
+        split[kind] += us / 1e3
+    total = sum(us for _, us, _ in device) / 1e3
+    busy = f", busy share {total / wall_ms:.4f} of an unprofiled wall of {wall_ms:.1f} ms" \
+        if wall_ms else ""
+    log(f"[moe] {what}: device time {total:.1f} ms over {len(device)} device ops{busy}: " +
+        ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})" for k, v in split.items()) +
+        f"; {unclaimed:.1f} ms of kernels no aten op claims (in other); top device ops:")
+    by_name = {}
+    for name, us, _ in device:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, c) in top:
+        log(f"[moe]   {us / 1e3:10.3f} ms  {c:6d} calls  {name[:100]}")
+    return dict(device_ms=total, device_ops=len(device), wall_ms=wall_ms,
+                unclaimed_ms=unclaimed, **{f"{k}_ms": v for k, v in split.items()},
+                top=[dict(name=n[:100], ms=us / 1e3, calls=c) for n, (us, c) in top])
+
+
+def moe_serving(device, cfg, full_depth=None):
+    """Phase 4, MoE: an MoE LM at full width in bf16 with random weights
+    from a seeded generator on the card (`draw_lm`; a config cut in depth
+    draws its layers at the full depth's scale). The main path as
+    Qwen3-4B's (`serve_main_path`: 4 prompts of 4,096 tokens, 64 greedy
+    decode steps), at the config's own capacity factor. Then a prefill with
+    its routing logged, bit-equal to the main path's: the share of
+    assignments dropped in each layer, the busiest expert, ties at the
+    k-th probability; a second timed prefill; bf16 teacher-forced decode
+    against prefill on a drop-free copy (capacity factor E / k: a capacity
+    of every token, which no expert can overflow; checked), by layer,
+    printed, not held (`moe_teacher_forced_f32` holds it in float32); a
+    profiled prefill by kind; one MoE layer at the prefill's shape under
+    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and the same
+    layer in bf16 against float32 (`moe_layer_bf16`, held)."""
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.param import param_bytes, param_count
+    from repro_torch.models.transformer import Transformer, lm_param_specs
+
+    torch.cuda.empty_cache()
+    mc = cfg.moe_cfg()
+    what = cfg.name if full_depth is None else \
+        f"{cfg.name} cut to {cfg.n_layers} of {full_depth} layers"
+    t = time.perf_counter()
+    model = draw_lm(cfg, device, full_depth)
+    torch.cuda.synchronize()
+    specs = lm_param_specs(cfg)
+    log(f"[moe] {what}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {mc.n_experts} experts ({mc.n_experts_padded} computed) of "
+        f"{mc.d_ff_expert}, top-{mc.top_k}, shared expert {mc.d_ff_shared}, capacity factor "
+        f"{mc.capacity_factor}, vocab {cfg.vocab}; {param_count(specs)} parameters, "
+        f"{param_bytes(specs) / 1e9:.2f} GB in bf16, drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    B, S = LM_BATCH, LM_PROMPT
+    tokens = torch.from_numpy(token_batch(0, B, S, cfg.vocab)["tokens"]).to(device)
+    main = serve_main_path(model, tokens)
+    step_ms, n_prefill = main["step_ms"], main["flash_prefill"]
+    cap, cap_decode = expert_capacity(B * S, mc), expert_capacity(B, mc)
+    log(f"[moe] {what} main path: prefill {B} x {S} tokens in {main['prefill_s']:.3f} s "
+        f"({B * S / main['prefill_s']:.0f} tokens/s; capacity {cap} an expert), flash "
+        f"launches {n_prefill}; {LM_DECODE} greedy decode steps (capacity {cap_decode}): "
+        f"median {np.median(step_ms):.3f} ms, mean {np.mean(step_ms):.3f} ms per step "
+        f"({B} sequences), flash launches "
+        f"{main['launches']['flash_attention'] - n_prefill}; peak memory "
+        f"{main['peak_gb']:.2f} GB; all logits finite")
+
+    with RouteLog() as routes:
+        last, kvs = model.prefill_forward(tokens)
+    del kvs
+    if not torch.equal(last, main["last"]):
+        raise AssertionError(f"{what}: two prefills of the same tokens differ")
+    figs = [routing_figures(r, mc.top_k) for r in routes.calls]
+    del routes
+    if len(figs) != cfg.n_layers:
+        raise AssertionError(f"{len(figs)} routed layers for {cfg.n_layers}")
+    shares = [f["dropped"] / f["assignments"] for f in figs]
+    log(f"[moe] {what}: a second prefill is bit-equal to the first; share of the "
+        f"{figs[0]['assignments']} assignments dropped a layer at capacity {cap}: " +
+        " ".join(f"{x:.4f}" for x in shares) + f" (mean {np.mean(shares):.4f}); busiest "
+        f"expert a layer: " + " ".join(str(f["busiest"]) for f in figs) +
+        f"; tokens whose {mc.top_k}th and {mc.top_k + 1}th probabilities tie: " +
+        " ".join(str(f["ties"]) for f in figs) + " (at 0: " +
+        " ".join(str(f["ties_at_0"]) for f in figs) + ")")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.prefill_forward(tokens)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t
+
+    # teacher-forced decode against a drop-free prefill: a copy at capacity
+    # factor E / k (a capacity of every token); by layer from `LayerLog`
+    factor = mc.n_experts / mc.top_k
+    free = Transformer(dataclasses.replace(cfg, capacity_factor=factor), params=model.tree(),
+                       device=device)
+    tf = teacher_forced(free, tokens)
+    del free
+    lay = tf["layers"]
+    log(f"[moe] {what}: second prefill {prefill2_s:.3f} s ({B * S / prefill2_s:.0f} "
+        f"tokens/s); bf16 teacher-forced decode of token {S} vs a drop-free prefill's last "
+        f"logits (capacity factor {factor:g}: capacity {tf['capacity']}, 0 dropped), relative "
+        f"L2 error {tf['rel_l2']:.4g} (same argmax {tf['same_argmax']:.2f}; not held: "
+        f"moe_teacher_forced_f32 holds it in float32); by layer: the first L layers' logits " +
+        by_layer(lay, "logits", ".4g") + "; requests routed alike " +
+        by_layer(lay, "routed_alike", "d") + f" of {B}; attention output " +
+        by_layer(lay, "attention") + "; hidden state " + by_layer(lay, "hidden"))
+    prof = profile_moe(f"{what} prefill", lambda: model.prefill_forward(tokens),
+                       prefill2_s * 1e3)
+    if prof["flash_attention_ms"] == 0 or prof["expert GEMMs_ms"] == 0:
+        raise AssertionError(f"{what}: the prefill profile lacks flash or the expert GEMMs")
+
+    g = torch.Generator(device=device).manual_seed(3)
+    h = torch.randn(B * S, cfg.d_model, generator=g, device=device).to(cfg.dtype)
+    ffn = model.layers[0].ffn
+    ffn(h)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ffn(h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[moe] {what}: one MoE layer over {B * S} tokens ran under "
+        f"set_sync_debug_mode(\"error\"): no host sync")
+    layer = moe_layer_bf16(model, h)
+    log(f"[moe] {what}: layer 0's MoE FFN over {B * S} tokens in bf16 vs float32 (TF32 off), "
+        f"routed alike, {layer['dropped']} of {layer['assignments']} assignments dropped: "
+        f"max error over max |output| {layer['err']:.4g} (tol {MOE_BF16_TOL:.4g}), relative "
+        f"L2 error {layer['rel_l2']:.4g}")
+    return dict(model=cfg.name, layers=cfg.n_layers, full_depth=full_depth or cfg.n_layers,
+                batch=B, prompt=S, decode_steps=LM_DECODE, capacity=cap,
+                capacity_decode=cap_decode, prefill_s=main["prefill_s"],
+                prefill_tokens_per_s=B * S / main["prefill_s"], prefill2_s=prefill2_s,
+                prefill2_tokens_per_s=B * S / prefill2_s,
+                decode_ms_median=float(np.median(step_ms)),
+                decode_ms_mean=float(np.mean(step_ms)), peak_memory_gb=main["peak_gb"],
+                flash_launches_prefill=n_prefill,
+                flash_launches_decode=main["launches"]["flash_attention"] - n_prefill,
+                dropped_share=shares, routing=figs, drop_free_factor=factor,
+                teacher_forced_bf16=tf, bf16_layer=layer, profile=prof), n_prefill
+
+
+def moe_layer_bf16(model, h) -> dict:
+    """The model's first MoE FFN at full width over tokens h (T, d) in bf16,
+    against the same FFN in float32 (its weights and h upcast, TF32 off),
+    routed alike (the router reads h in float32 on both sides; checked).
+    Held: max error over max |output| within MOE_BF16_TOL."""
+    from repro_torch.models.moe import moe_routed
+    from repro_torch.models.param import tree_map
+
+    ffn = model.layers[0].ffn
+    with no_tf32():
+        out, r = moe_routed(ffn.tree(), h, ffn.cfg)
+        out32, r32 = moe_routed(tree_map(lambda a: a.float(), ffn.tree()), h.float(),
+                                dataclasses.replace(ffn.cfg, dtype=torch.float32))
+    for name in ("idx", "rank", "keep", "dest_e", "dest_c"):
+        if not torch.equal(getattr(r, name), getattr(r32, name)):
+            raise AssertionError(f"bf16 vs float32 MoE layer: {name} differs")
+    err = float((out.float() - out32).abs().max()) / float(out32.abs().max())
+    fig = dict(err=err, rel_l2=rel_l2(out, out32), dropped=int((~r.keep).sum()),
+               assignments=r.keep.numel())
+    if not err <= MOE_BF16_TOL:
+        raise AssertionError(f"bf16 vs float32 MoE layer: max error / max |output| {err}")
+    return fig
+
+
+def teacher_forced(model, tokens) -> dict:
+    """Prefill all of `tokens` (B, S), and S - 1 of them then decode the last
+    (teacher-forced), with no MoE assignment dropped (checked). The decode's
+    last position against the prefill's: the logits (relative L2 error, max
+    abs error, same-argmax share), and after each layer (`LayerLog`,
+    `RouteLog`): the requests routed alike (the same top-k experts in the
+    same order), the largest gate difference, the least gap among the
+    prefill's k + 1 largest probabilities, the relative L2 error of the
+    attention output, of the hidden state and of the logits of the first L
+    layers (the final norm and the unembedding of layer L's output, which
+    is what a model cut to L layers computes)."""
+    from repro_torch.models import layers as L
+
+    B, S = tokens.shape
+    cfg, k = model.cfg, model.cfg.top_k
+    with RouteLog() as pre_routes, LayerLog() as pre:
+        full_last, kvs = model.prefill_forward(tokens)
+    del kvs
+    with RouteLog() as cut_routes:
+        _, kvs = model.prefill_forward(tokens[:, :-1])
+    dropped = sum(int((~r.keep).sum()) for r in pre_routes.calls + cut_routes.calls)
+    capacity = pre_routes.calls[0].capacity
+    del cut_routes
+    if dropped:
+        raise AssertionError(f"{cfg.name}: {dropped} assignments dropped at capacity "
+                             f"factor {cfg.capacity_factor}")
+    cache = cache_from_prefill(model, kvs, B, S + 1, S - 1)
+    del kvs
+    with RouteLog() as dec_routes, LayerLog() as dec:
+        step, _ = model.serve_step(cache, tokens[:, -1:])
+    del cache
+
+    def logits(x):
+        return model._logits(L.rms_norm(x, model.final_norm, cfg.norm_eps))
+
+    last = torch.arange(B, device=tokens.device) * S + S - 1
+    layers = []
+    for li, (p, d) in enumerate(zip(pre_routes.calls, dec_routes.calls)):
+        probs = p.probs[last]
+        top = torch.sort(probs, dim=-1, descending=True).values[:, :k + 1]
+        gap = (top[:, :-1] - top[:, 1:]).min(1).values
+        alike = (p.idx[last] == d.idx).all(1)
+        gates_p = torch.zeros_like(probs).scatter_(1, p.idx[last], p.gates[last])
+        gates_d = torch.zeros_like(probs).scatter_(1, d.idx, d.gates)
+        layers.append(dict(routed_alike=int(alike.sum()), least_gap=float(gap.min()),
+                           least_gap_otherwise=float(gap[~alike].min()) if not alike.all()
+                           else None,
+                           gate_diff=float((gates_p - gates_d).abs().max()),
+                           attention=rel_l2(dec.attn[li], pre.attn[li]),
+                           hidden=rel_l2(dec.x[li], pre.x[li]),
+                           logits=rel_l2(logits(dec.x[li]), logits(pre.x[li]))))
+    return dict(rel_l2=rel_l2(step, full_last), max_abs=float((step - full_last).abs().max()),
+                max_abs_logit=float(full_last.abs().max()),
+                same_argmax=float((step.argmax(-1) == full_last.argmax(-1)).float().mean()),
+                capacity=capacity, requests=B, layers=layers,
+                routed_alike=all(x["routed_alike"] == B for x in layers))
+
+
+def by_layer(layers: list, key: str, fmt: str = ".3g") -> str:
+    return " ".join(format(x[key], fmt) for x in layers)
+
+
+def perturbed_prefill(model, tokens, seed: int) -> dict:
+    """The model's own sensitivity to rounding: a prefill of `tokens` whose
+    embedded input has every entry moved by one float32 ulp, up or down
+    from a seeded draw, against the unmoved prefill. The relative L2 error
+    of the last position's logits, and after each layer of its hidden
+    state."""
+    from repro_torch.models.transformer import Transformer
+
+    with LayerLog() as base:
+        base_last, kvs = model.prefill_forward(tokens)
+    del kvs
+    g = torch.Generator(device=tokens.device).manual_seed(seed)
+
+    def moved(tok):
+        x = Transformer._embed(model, tok)
+        up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
+        return torch.nextafter(x, torch.where(up, torch.inf, -torch.inf).to(x.dtype))
+
+    model._embed = moved
+    try:
+        with LayerLog() as other:
+            last, kvs = model.prefill_forward(tokens)
+        del kvs
+    finally:
+        del model._embed
+    return dict(rel_l2=rel_l2(last, base_last),
+                hidden=[rel_l2(a, b) for a, b in zip(other.x, base.x)])
+
+
+def moe_teacher_forced_f32(device, cfg, full_depth):
+    """Phase 4, MoE: the served model in float32 with TF32 off (qwen2-moe
+    whole, DBRX cut as it is served, drawn at its full depth's scale), one
+    prompt of LM_PROMPT tokens, drop-free (capacity factor E / k):
+    teacher-forced decode against prefill (`teacher_forced`), then the same
+    with the prefill's attention through the plain version (the flash
+    kernel left out), and two prefills whose input moved by an ulp
+    (`perturbed_prefill`). Held: the decode's token routed as the
+    prefill's last in every layer, and the logits within
+    TEACHER_FORCED_F32_REL_TOL. The bf16 comparison is not held
+    (moe_serving prints it): decode's attention scores are the reference's
+    bf16 einsum, rounded to bf16 at |scores| of hundreds without qk_norm,
+    where prefill's flash scores are float32; the reference's own decode
+    parts from its flash prefill as far (tests/_moe_bf16_witness.py)."""
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels import ops, ref
+
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    attention = ops.attention
+    with no_tf32():
+        model = draw_lm(f32, device, full_depth)
+        tokens = torch.from_numpy(token_batch(0, 1, LM_PROMPT, f32.vocab)["tokens"]).to(device)
+        tf = teacher_forced(model, tokens)
+        moved = [perturbed_prefill(model, tokens, seed) for seed in (1, 2)]
+        ops.attention = lambda q, k, v, **kw: ref.attention_chunked_ref(q, k, v, **{
+            n: kw[n] for n in ("causal", "window", "softcap")})
+        try:
+            plain = teacher_forced(model, tokens)
+        finally:
+            ops.attention = attention
+    what = cfg.name if full_depth is None else \
+        f"{cfg.name} cut to {cfg.n_layers} of {full_depth} layers"
+    lay = tf["layers"]
+    log(f"[moe] {what} at full width, float32, TF32 off, 1 x {LM_PROMPT} tokens, drop-free "
+        f"(capacity {tf['capacity']}): teacher-forced decode vs prefill, relative L2 error "
+        f"{tf['rel_l2']:.4g} (tol {TEACHER_FORCED_F32_REL_TOL}; max abs err "
+        f"{tf['max_abs']:.3g} over logits of max |{tf['max_abs_logit']:.3g}|, same argmax "
+        f"{tf['same_argmax']:.2f}); with the "
+        f"prefill's attention through the plain version {plain['rel_l2']:.4g}; a prefill "
+        f"whose input moved by an ulp: " + ", ".join(f"{m['rel_l2']:.4g}" for m in moved) +
+        ". By layer: routed alike " + by_layer(lay, "routed_alike", "d") +
+        f" of 1; least gap among the {f32.top_k + 1} largest probabilities " +
+        by_layer(lay, "least_gap") + "; largest gate difference " +
+        by_layer(lay, "gate_diff") + "; relative L2 error of the attention output " +
+        by_layer(lay, "attention") + ", of the hidden state " + by_layer(lay, "hidden") +
+        " (input moved by an ulp: " + "; ".join(" ".join(f"{x:.3g}" for x in m["hidden"])
+                                               for m in moved) +
+        "), of the first L layers' logits " + by_layer(lay, "logits"))
+    if not tf["routed_alike"]:
+        raise AssertionError(f"{what}: float32 decode routes otherwise than prefill: {lay}")
+    if not tf["rel_l2"] <= TEACHER_FORCED_F32_REL_TOL:
+        raise AssertionError(f"{what}: float32 teacher-forced decode differs from prefill: "
+                             f"{tf['rel_l2']}")
+    return dict(teacher_forced=tf, plain_attention=plain, input_moved=moved)
+
+
+def moe_card_vs_cpu(device):
+    """Phase 5, MoE: qwen2-moe-a2.7b at full width cut to 2 layers, float32,
+    TF32 off, one prompt of MOE_CPU_PROMPT tokens, prefill on the card
+    (flash kernel) against the CPU (plain version). Every layer's top-k
+    indices, ranks, keep mask and destinations must be equal on every
+    token, logits and KV within CARD_VS_CPU_TOL. Counted beside: the
+    tokens whose k-th and (k+1)-th probabilities tie, and the tokens the
+    card routes otherwise when TF32 is on."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(qwen2_moe_a2_7b.model_cfg(), n_layers=2, dtype=torch.float32)
+    k = cfg.top_k
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = Transformer(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+        card = Transformer(cfg, params=cpu.tree(), device=device)
+        tokens = torch.from_numpy(token_batch(1, 1, MOE_CPU_PROMPT, cfg.vocab)["tokens"])
+        before = LAUNCHES["flash_attention"]
+        with RouteLog() as on_card:
+            last_d, kv_d = card.prefill_forward(tokens.to(device))
+        torch.cuda.synchronize()
+        if LAUNCHES["flash_attention"] - before != cfg.n_layers:
+            raise AssertionError("the card's prefill did not run the flash kernel per layer")
+        with RouteLog() as on_cpu:
+            last_c, kv_c = cpu.prefill_forward(tokens)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with RouteLog() as with_tf32:
+            card.prefill_forward(tokens.to(device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    layers, routing_ok = [], True
+    for li, (d, c, t32) in enumerate(zip(on_card.calls, on_cpu.calls, with_tf32.calls)):
+        by_token = (d.idx.cpu() != c.idx).any(1)
+        for name in ("rank", "keep", "dest_e", "dest_c"):
+            by_token |= (getattr(d, name).cpu() != getattr(c, name)).view(-1, k).any(1)
+        fig = routing_figures(c, k)
+        differ = int(by_token.sum())
+        layers.append(dict(layer=li, tokens_differ=differ,
+                           differ_on_ties=int((by_token & ties(c, k)[0]).sum()),
+                           ties=fig["ties"],
+                           ties_at_0=fig["ties_at_0"], dropped=fig["dropped"],
+                           assignments=fig["assignments"], capacity=fig["capacity"],
+                           tf32_tokens_differ=int((t32.idx.cpu() != c.idx).any(1).sum())))
+        routing_ok &= differ == 0
+    errs = {"logits": (last_d.cpu(), last_c)}
+    for n in ("k", "v"):
+        errs[n] = (kv_d["0"][n].cpu(), kv_c["0"][n])
+    out = {}
+    for what, (a, b) in errs.items():
+        out[what] = float((a - b).abs().max()) / float(b.abs().max())
+    log(f"[moe-cpu] {cfg.name} x{cfg.n_layers} layers, float32, TF32 off, "
+        f"{MOE_CPU_PROMPT} tokens: card vs CPU routing, per layer: " + "; ".join(
+            f"layer {x['layer']}: {x['tokens_differ']} tokens routed otherwise "
+            f"({x['differ_on_ties']} of them on a tie), {x['ties']} tokens with the "
+            f"{k}th and {k + 1}th probabilities tied ({x['ties_at_0']} at 0), "
+            f"{x['dropped']} of {x['assignments']} assignments dropped at capacity "
+            f"{x['capacity']}; with TF32 on {x['tf32_tokens_differ']} tokens routed otherwise"
+            for x in layers) +
+        f". Max error over max |value|: logits {out['logits']:.3g}, k {out['k']:.3g}, v "
+        f"{out['v']:.3g} (tol {CARD_VS_CPU_TOL})")
+    if not routing_ok:
+        raise AssertionError(f"card vs CPU: routing differs {layers}")
+    for what, err in out.items():
+        if not err <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"card vs CPU {what}: max error / max |value| {err}")
+    return dict(errors=out, layers=layers)
 
 
 # ---------------------------------------------------------------------------
@@ -2501,6 +3100,24 @@ def main() -> int:
     phase_done("Qwen3-4B serving")
     lm["card_vs_cpu"] = lm_card_vs_cpu(device)
     phase_done("Qwen3-4B card vs CPU")
+    from repro_torch.configs import dbrx_132b, qwen2_moe_a2_7b
+
+    moe = {}
+    moe["qwen2-moe-a2.7b"], n_qwen_moe = moe_serving(device, qwen2_moe_a2_7b.model_cfg())
+    phase_done("qwen2-moe-a2.7b serving")
+    dbrx = dbrx_132b.model_cfg()
+    moe["dbrx-132b"], n_dbrx = moe_serving(
+        device, dataclasses.replace(dbrx, n_layers=MOE_DBRX_LAYERS), full_depth=dbrx.n_layers)
+    phase_done(f"dbrx-132b ({MOE_DBRX_LAYERS} of {dbrx.n_layers} layers) serving")
+    moe["qwen2-moe-a2.7b"]["teacher_forced_f32"] = moe_teacher_forced_f32(
+        device, qwen2_moe_a2_7b.model_cfg(), None)
+    moe["dbrx-132b"]["teacher_forced_f32"] = moe_teacher_forced_f32(
+        device, dataclasses.replace(dbrx, n_layers=MOE_DBRX_LAYERS), dbrx.n_layers)
+    phase_done("MoE teacher-forced in float32")
+    moe["card_vs_cpu"] = moe_card_vs_cpu(device)
+    phase_done("qwen2-moe-a2.7b card vs CPU")
+    # the kernel line counts flash on every LM path: Qwen3-4B's, then the MoE LMs'
+    kernels["flash_attention"]["launches"] += n_qwen_moe + n_dbrx
     kernels["segment_sum"], gnn = gnn_aggregation(device)
     kernels["segment_sum"]["max_abs_err"] = max(kernels["segment_sum"]["max_abs_err"], seg_err)
     phase_done("GNN aggregation")
@@ -2515,6 +3132,7 @@ def main() -> int:
     log(json.dumps({"routing": routing}))
     log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
     log(json.dumps({"gnn": gnn, "din": din, "card_vs_cpu": cpu}))
+    log(json.dumps({"moe": moe}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

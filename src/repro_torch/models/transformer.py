@@ -1,10 +1,11 @@
-"""Dense decoder-only LM: prefill and decode (the reference's
-`models/transformer.py`, dense path).
+"""Decoder-only LM: prefill and decode (the reference's
+`models/transformer.py`).
 
 Per-architecture flags in `LMConfig`: GQA, QKV bias (qwen2.5), per-head qk
 RMS norm (qwen3), alternating local (sliding-window) / global layers,
 attention and final logit softcaps, post-norms and embedding scaling
-(gemma2). MoE FFNs (`n_experts > 0`), the loss heads and training wait for
+(gemma2), MoE FFNs with a shared expert (qwen2-moe) or without (dbrx):
+`n_experts > 0`, `models/moe.py`. The loss heads and training wait for
 later slices.
 
 Parameters keep the reference's `(in, out)` layout (`x @ W`). The
@@ -34,6 +35,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_VALUE
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE, MoEConfig, Routing, aux_loss, moe_param_specs
 from repro_torch.models.param import ParamSpec, init_params, tree_map
 
 
@@ -47,7 +49,13 @@ class LMConfig:
     head_dim: int
     d_ff: int
     vocab: int
-    n_experts: int = 0  # > 0: MoE, not ported yet
+    # MoE (n_experts == 0: dense)
+    n_experts: int = 0
+    n_experts_padded: int = 0  # 0: n_experts
+    top_k: int = 0
+    d_ff_expert: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
     # attention flavour
     qkv_bias: bool = False
     qk_norm: bool = False
@@ -77,12 +85,12 @@ class LMConfig:
                              f"of {self.group_size}")
         return self.n_layers // self.group_size
 
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs (n_experts={cfg.n_experts}) wait for the MoE "
-            "slice of the port (models/moe.py)")
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(d_model=self.d_model, n_experts=self.n_experts,
+                         n_experts_padded=self.n_experts_padded or self.n_experts,
+                         top_k=self.top_k, d_ff_expert=self.d_ff_expert,
+                         d_ff_shared=self.d_ff_shared, capacity_factor=self.capacity_factor,
+                         dtype=self.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +122,8 @@ def _attn_specs(cfg: LMConfig) -> dict:
 
 
 def _ffn_specs(cfg: LMConfig) -> dict:
+    if cfg.moe:
+        return moe_param_specs(cfg.moe_cfg())
     d, f = cfg.d_model, cfg.d_ff
     return {
         "w_gate": ParamSpec((d, f), ("embed", "mlp"), dtype=cfg.dtype),
@@ -138,7 +148,6 @@ def _layer_specs(cfg: LMConfig) -> dict:
 def lm_param_specs(cfg: LMConfig) -> dict:
     """The reference's spec tree: {"embed", "layers": {pattern index: layer
     specs stacked (n_groups, ...)}, "final_norm", "unembed"}."""
-    _dense_only(cfg)
     return {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=1.0,
                            dtype=cfg.dtype),
@@ -179,18 +188,21 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 
 
 class Layer(nn.Module):
-    """One decoder layer's parameters, under the reference's names."""
+    """One decoder layer's parameters, under the reference's names; an MoE
+    layer's FFN is an `MoE` module (its `shared` subtree nests)."""
 
-    def __init__(self, p: dict, kind: str):
+    def __init__(self, p: dict, kind: str, moe: Optional[MoEConfig] = None):
         super().__init__()
         self.kind = kind  # local | global
         self.attn = nn.ParameterDict({k: _param(v) for k, v in p["attn"].items()})
-        self.ffn = nn.ParameterDict({k: _param(v) for k, v in p["ffn"].items()})
+        self.ffn = MoE(p["ffn"], moe) if moe is not None else \
+            nn.ParameterDict({k: _param(v) for k, v in p["ffn"].items()})
         self.norms = nn.ParameterDict(
             {k: _param(v) for k, v in p.items() if k not in ("attn", "ffn")})
 
     def tree(self) -> dict:
-        return {"attn": dict(self.attn), "ffn": dict(self.ffn), **dict(self.norms)}
+        ffn = self.ffn.tree() if isinstance(self.ffn, MoE) else dict(self.ffn)
+        return {"attn": dict(self.attn), "ffn": ffn, **dict(self.norms)}
 
 
 class Transformer(nn.Module):
@@ -205,7 +217,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: LMConfig, params: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None, device: DeviceLike = None):
         super().__init__()
-        _dense_only(cfg)
         dev = resolve_device(device)
         if params is None:
             params = unstack_layers(init_params(lm_param_specs(cfg), generator, dev), cfg)
@@ -217,7 +228,8 @@ class Transformer(nn.Module):
         self.embed = _param(params["embed"])
         self.final_norm = _param(params["final_norm"])
         self.unembed = _param(params["unembed"])
-        self.layers = nn.ModuleList(Layer(p, cfg.pattern[li % cfg.group_size])
+        moe = cfg.moe_cfg() if cfg.moe else None
+        self.layers = nn.ModuleList(Layer(p, cfg.pattern[li % cfg.group_size], moe)
                                     for li, p in enumerate(params["layers"]))
 
     @property
@@ -240,24 +252,35 @@ class Transformer(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return L.softcap((x @ self.unembed).float(), self.cfg.final_softcap)
 
-    def _run_layers(self, tokens: torch.Tensor, kvs: Optional[list] = None) -> torch.Tensor:
+    def _run_layers(self, tokens: torch.Tensor,
+                    kvs: Optional[list] = None) -> Tuple[torch.Tensor, list]:
+        """(x after the final norm, the MoE layers' `Routing`s in layer order)."""
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        routings = []
         for lp in self.layers:
-            x, kv = _layer(lp, x, self.cfg, positions)
+            x, r, kv = _layer(lp, x, self.cfg, positions)
+            if r is not None:
+                routings.append(r)
             if kvs is not None:
                 kvs.append(kv)
-        return L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), routings
 
     @torch.no_grad()
     def trunk(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Embed + layers + final norm: tokens (B, S) -> (x (B, S, d), aux)."""
-        return self._run_layers(tokens), torch.zeros((), device=self.device)
+        """Embed + layers + final norm: tokens (B, S) -> (x (B, S, d), aux:
+        the float32 sum of the layers' MoE load-balance losses, in layer
+        order; 0 for a dense LM)."""
+        x, routings = self._run_layers(tokens)
+        aux = torch.zeros((), device=x.device)
+        for r in routings:
+            aux = aux + aux_loss(r)
+        return x, aux
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (float32 logits (B, S, V), aux = 0 for a dense LM)."""
+        """tokens (B, S) -> (float32 logits (B, S, V), aux as `trunk`)."""
         x, aux = self.trunk(tokens)
         return self._logits(x), aux
 
@@ -266,7 +289,7 @@ class Transformer(nn.Module):
         """tokens (B, S) -> (last-position logits (B, V), KV stack
         {pattern index: {"k", "v": (n_groups, B, Hkv, S, Dh)}})."""
         kvs: list = []
-        x = self._run_layers(tokens, kvs)
+        x, _ = self._run_layers(tokens, kvs)
         G = self.cfg.group_size
         stack = {str(i): {n: torch.stack([kv[n] for kv in kvs[i::G]]) for n in ("k", "v")}
                  for i in range(G)}
@@ -290,7 +313,7 @@ class Transformer(nn.Module):
         new_layers = []
         for lp, cache in zip(self.layers, kv_cache["layers"]):
             positions = (cache["pos"] + torch.arange(S, device=x.device))[None, :].expand(B, S)
-            x, new_cache = _layer(lp, x, self.cfg, positions, kv_cache=cache)
+            x, _, new_cache = _layer(lp, x, self.cfg, positions, kv_cache=cache)
             new_layers.append(new_cache)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x[:, -1:, :])[:, 0], {"layers": new_layers}
@@ -345,7 +368,9 @@ def _attention(p: nn.ParameterDict, x: torch.Tensor, cfg: LMConfig, kind: str,
 
 
 def _layer(lp: Layer, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor,
-           kv_cache: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+           kv_cache: Optional[dict] = None
+           ) -> Tuple[torch.Tensor, Optional[Routing], dict]:
+    """One layer: (x, the MoE FFN's `Routing` (None for a dense FFN), the KV)."""
     n = lp.norms
     h = L.rms_norm(x, n["input_norm"], cfg.norm_eps)
     attn_out, new_cache = _attention(lp.attn, h, cfg, lp.kind, positions, kv_cache)
@@ -353,7 +378,13 @@ def _layer(lp: Layer, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor,
         attn_out = L.rms_norm(attn_out, n["post_attn_out_norm"], cfg.norm_eps)
     x = x + attn_out
     h = L.rms_norm(x, n["post_attn_norm"], cfg.norm_eps)
-    ffn_out = L.swiglu(h, lp.ffn["w_gate"], lp.ffn["w_up"], lp.ffn["w_down"])
+    if cfg.moe:  # tokens flattened row-major: capacity ranks favour earlier rows
+        B, S, d = h.shape
+        ffn_out, routing = lp.ffn(h.reshape(B * S, d))
+        ffn_out = ffn_out.view(B, S, d)
+    else:
+        ffn_out = L.swiglu(h, lp.ffn["w_gate"], lp.ffn["w_up"], lp.ffn["w_down"])
+        routing = None
     if cfg.post_norms:
         ffn_out = L.rms_norm(ffn_out, n["post_ffn_norm"], cfg.norm_eps)
-    return x + ffn_out, new_cache
+    return x + ffn_out, routing, new_cache

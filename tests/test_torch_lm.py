@@ -1,10 +1,12 @@
-"""The port's dense LM against the reference's, on the CPU.
+"""The port's LM against the reference's, on the CPU.
 
-For the smoke configs of qwen3-4b, qwen2.5-14b and gemma2-27b, the
+For the smoke configs of qwen3-4b, qwen2.5-14b, gemma2-27b and the MoE LMs
+qwen2-moe-a2.7b and dbrx-132b (drop-free at capacity_factor 8), the
 reference's parameters (`init_params` from a JAX key) are carried across
 with `repro_torch.convert` and the same token batches go through both
 packages: `forward` logits, `prefill_forward`'s last logits and KV stack,
-and teacher-forced `serve_step`s must agree. All in float32, within
+and teacher-forced `serve_step`s must agree, and `forward`'s aux (the
+MoE load-balance loss summed over layers) within AUX_TOL. All in float32, within
 TOL = 2e-4 absolute and relative: a tenth of the reference's own 2e-3
 between its prefill and decode paths (`tests/test_models_lm.py`); the two
 packages differ only in the order of float32 sums (measured up to 8e-5 on
@@ -27,7 +29,7 @@ from repro.models.param import init_params as jinit_params
 from repro.models.param import param_bytes as jparam_bytes
 from repro.models.param import param_count as jparam_count
 from repro_torch import convert
-from repro_torch.configs import gemma2_27b, qwen2_5_14b, qwen3_4b
+from repro_torch.configs import dbrx_132b, gemma2_27b, qwen2_5_14b, qwen2_moe_a2_7b, qwen3_4b
 from repro_torch.data.tokens import token_batch
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, init_params, param_bytes, param_count, \
@@ -35,7 +37,9 @@ from repro_torch.models.param import ParamSpec, init_params, param_bytes, param_
 from repro_torch.models.transformer import Transformer, lm_param_specs
 
 TOL = 2e-4
-CONFIGS = {"qwen3-4b": qwen3_4b, "qwen2.5-14b": qwen2_5_14b, "gemma2-27b": gemma2_27b}
+AUX_TOL = 1e-6
+CONFIGS = {"qwen3-4b": qwen3_4b, "qwen2.5-14b": qwen2_5_14b, "gemma2-27b": gemma2_27b,
+           "qwen2-moe-a2.7b": qwen2_moe_a2_7b, "dbrx-132b": dbrx_132b}
 
 
 def close(a, b, tol=TOL, what=""):
@@ -90,21 +94,25 @@ def test_qwen3_4b_full_width_size():
     assert param_count(specs) == 4_411_424_256  # ~4.41 B, 8.8 GB in bf16
 
 
+@pytest.mark.parametrize("name,n_layers,count", [
+    ("qwen2-moe-a2.7b", 24, 15_146_207_232),  # 30.30 GB in bf16: whole on one card
+    ("dbrx-132b", 40, 131_596_523_520),
+    ("dbrx-132b", 4, 14_269_470_720),  # the card's cut: 28.54 GB in bf16
+])
+def test_moe_full_width_sizes(name, n_layers, count):
+    cfg = dataclasses.replace(CONFIGS[name].model_cfg(), n_layers=n_layers)
+    assert param_count(lm_param_specs(cfg)) == count
+    jcfg = dataclasses.replace(get_arch(name).model_cfg(), n_layers=n_layers)
+    assert jparam_count(JT.lm_param_specs(jcfg)) == count
+    assert cfg.moe_cfg().n_experts_padded == (64 if name == "qwen2-moe-a2.7b" else 16)
+
+
 def test_token_batch_equals_the_reference():
     for step, seed in [(0, 0), (3, 7)]:
         a, b = token_batch(step, 4, 33, 151936, seed), jtoken_batch(step, 4, 33, 151936, seed)
         for k in ("tokens", "labels"):
             np.testing.assert_array_equal(a[k], b[k])
             assert a[k].dtype == b[k].dtype
-
-
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "dbrx-132b"])
-def test_moe_configs_raise_not_implemented(arch):
-    cfg = convert.lm_config_from_reference(get_arch(arch).smoke_cfg())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Transformer(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +158,19 @@ def test_bf16_parameters_round_trip_bit_exact(name):
     assert tcfg.dtype == torch.bfloat16
     ported = convert.lm_params_from_reference(params, tcfg, "cpu")
     assert ported["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
-    back = convert.lm_params_to_reference(ported, tcfg)
-    flat_back = jax.tree.leaves(back)
-    for orig, got in zip(jax.tree.leaves(params), flat_back, strict=True):
-        orig = np.asarray(orig)
-        if orig.dtype.name == "bfloat16":
-            assert got.dtype == np.uint16
-            np.testing.assert_array_equal(orig.view(np.uint16), got)
-        else:
-            np.testing.assert_array_equal(orig, got)
+    # straight back, and through the model's own tree (an MoE layer nests
+    # its FFN in an `MoE` module)
+    model_tree = Transformer(tcfg, ported, device="cpu").tree()
+    for back in (convert.lm_params_to_reference(ported, tcfg),
+                 convert.lm_params_to_reference(model_tree, tcfg)):
+        flat_back = jax.tree.leaves(back)
+        for orig, got in zip(jax.tree.leaves(params), flat_back, strict=True):
+            orig = np.asarray(orig)
+            if orig.dtype.name == "bfloat16":
+                assert got.dtype == np.uint16
+                np.testing.assert_array_equal(orig.view(np.uint16), got)
+            else:
+                np.testing.assert_array_equal(orig, got)
 
 
 def test_layer_order_interleaves_the_pattern(lm):
@@ -209,7 +221,11 @@ def test_forward_equals_the_reference(lm):
     tl, taux = model.forward(tt)
     assert tl.dtype == torch.float32 and tl.shape == (2, 32, cfg.vocab)
     close(tl, jl, what="forward logits")
-    assert float(taux) == float(jaux) == 0.0
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    if cfg.n_experts:
+        assert float(jaux) > 0 and abs(float(taux) - float(jaux)) <= AUX_TOL
+    else:
+        assert float(taux) == float(jaux) == 0.0
 
 
 def test_prefill_forward_equals_the_reference(lm):
