@@ -73,6 +73,19 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
   8. holds both on the card against the CPU at a small size, and shows
      that float16 computes on the CPU and raises on the card.
 
+  9. trains: the flash backward kernel against the plain version's
+     autograd over a grid of shapes (Qwen3-4B's training attention, GQA
+     groups 1 and 6, gemma2's window and softcap, ragged lengths, fully
+     masked rows, D 16 to 128, both dtypes; every branch read back from a
+     profile, a repeat bit-equal), timed beside SDPA's backward and its
+     bound; Qwen3-4B at full width and depth through `Trainer` (4
+     microbatches of 4,096 tokens a step, remat), its flash launches a
+     step counted, its steps timed and one profiled by kind; a 1-layer
+     cut checkpointed into a temporary directory, a failure injected
+     mid-run, the restart bit-equal to a run without failure; two train
+     steps of a 2-layer float32 cut on the card and on the CPU held
+     together.
+
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases; for
 the bag, every branch of its kernel, each read back from a profile).
@@ -94,6 +107,7 @@ import sys
 import time
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -124,13 +138,17 @@ KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device sy
                     "segment_sum_kernel", CSRC + "segment_sum.cu"),
     "embedding_bag": ("embedding_bag_ref", "src/repro/kernels/embedding_bag.py:51",
                       "embedding_bag_kernel", CSRC + "embedding_bag.cu"),
+    # the gradient of row 5's function: the reference takes it by jax.grad
+    "flash_attention_bwd": ("attention_grads_ref", "src/repro/kernels/flash_attention.py:99",
+                            "flash_bwd_", CSRC + "flash_attention_bwd.cu"),
 }
 KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
 TIMING_FIELDS = ("wall_s", "throughput_qps")
 PROFILE_PAD = 64  # spin kernels ahead of a profiled call (see device_ops)
-# profiles of one call while the trace lacks the kernel sought (the
-# profiler has dropped a short call's events three times in a row)
+# profiles of one call while the trace lacks a kernel sought or kept no
+# pad kernel (the profiler has dropped a short call's events three times in
+# a row, and once the pads and every launch of a backward but its last)
 PROFILE_TRIES = 5
 
 # flash attention against its plain version: (name, B, Hq, Hkv, Sq, Skv, D,
@@ -283,6 +301,45 @@ MOE_BF16_TOL = 2.0 ** -5
 # by one ulp, reads 1.0e-3 to 2.8e-3 there, which no tolerance can undercut
 TEACHER_FORCED_F32_REL_TOL = 1e-2
 
+# LM training (phase 9). The flash backward kernel against its plain
+# version: (name, B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, dtype);
+# the first is Qwen3-4B's training attention (one microbatch of 4,096
+# tokens), whose times go into the kernel line. Together the shapes take
+# every <T, kD> branch of csrc/flash_attention_bwd.cu, each read back from
+# a profile; "masked rows": rows past Skv + window - 1 see no key.
+BWD_SHAPES = [
+    ("qwen3-4b training", 1, 32, 8, 4096, 4096, 128, True, None, None, BF16),
+    ("GQA group 1 (qwen2-moe)", 1, 16, 16, 2048, 2048, 128, True, None, None, BF16),
+    ("GQA group 6 (dbrx)", 1, 48, 8, 2048, 2048, 128, True, None, None, BF16),
+    ("gemma2 window 512, softcap 50", 1, 8, 4, 2048, 2048, 128, True, 512, 50.0, BF16),
+    ("gemma2 window 512, softcap 50", 1, 4, 2, 2048, 2048, 128, True, 512, 50.0, F32),
+    ("ragged 1000", 1, 4, 2, 1000, 1000, 64, True, None, None, F32),
+    ("ragged 1000", 1, 4, 2, 1000, 1000, 64, True, None, None, BF16),
+    ("Sq 1000 > Skv 300, masked rows", 1, 4, 2, 1000, 300, 32, True, 128, None, F32),
+    ("Sq 1000 > Skv 300, masked rows", 1, 4, 2, 1000, 300, 32, True, 128, None, BF16),
+    ("bidirectional Sq < Skv, softcap", 2, 4, 2, 300, 1000, 16, False, None, 30.0, F32),
+    ("bidirectional window, masked rows", 1, 6, 3, 700, 200, 16, False, 64, None, BF16),
+    ("D 80", 1, 4, 2, 500, 500, 80, True, None, None, BF16),
+    ("D 77, window, softcap", 1, 4, 2, 333, 333, 77, True, 50, 30.0, F32),
+]
+BWD_PASSES = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# max |kernel - plain| over max |plain| of dq, dk, dv: the bf16 outputs round
+# by at most 2^-8 of their own size; float32 sums in another order
+BWD_TOL = {BF16: 2.0 ** -7, F32: 1e-5}
+# Qwen3-4B trained at full width: TRAIN_LAYERS of its 36 layers, its
+# grad_accum (4) microbatches of TRAIN_MICRO x TRAIN_SEQ tokens a step
+# (16,384 tokens; configs/base.py train_4k's 256 x 4,096 needs many cards)
+TRAIN_LAYERS, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 36, 1, 4096, 5, 2
+TRAIN_KINDS = ("GEMMs", "flash forward", "flash backward", "optimizer",
+               "elementwise and the rest")
+# the restart: 1 layer at full width (8.8 GB a checkpoint, three saves: the
+# script keeps its disk writes under 30 GB), checkpoints every 2 steps, a
+# failure at the start of step 3 (restored from step 2), 4 steps
+TRAIN_RESTART = dict(layers=1, steps=4, ckpt_every=2, fail_at=3)
+# training card vs CPU: 2 layers at full width, float32, 2 x 256 tokens;
+# relative errors of the loss and grad norm, and of m and v per leaf
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_TOL = 2, 2, 256, 1e-3
+
 # graph routing (phases 2 and 3)
 SCHEMES = ("hash", "landmark", "embed", "next_ready")
 COORD_ATOL = 5e-4  # embedding coordinates, card vs CPU (tests/test_torch_embedding.py)
@@ -368,23 +425,35 @@ def device_ops(fn, want=None):
     """{device op name: (us, calls)} of one `fn()` under torch.profiler.
     The trace can lose its first device events, so PROFILE_PAD short spin
     kernels go first and are left out of the result; the log says when
-    the trace lost some of them. Inside a long run it has also lost every
-    event of a profile, so when `want` is given and no op name holds it,
-    `fn()` is profiled again, up to PROFILE_TRIES times in all."""
+    the trace lost some of them, and a trace that kept none of them may
+    have lost `fn()`'s first events too, so `fn()` is profiled again. Inside
+    a long run it has also lost every event of a profile, and every event
+    up to the last kernel of a call, so when `want` is given (a name, or a
+    tuple of names that must all show) and an op name holding one of them is
+    missing, `fn()` is profiled again; up to PROFILE_TRIES times in all."""
+    wants = () if want is None else (want,) if isinstance(want, str) else tuple(want)
     for tries in range(1, PROFILE_TRIES + 1):
-        by_name = {}
-        for name, _, us in _device_events(fn):
+        by_name, events = {}, _device_events(fn)
+        for name, _, us in events:
             t, calls = by_name.get(name, (0.0, 0))
             by_name[name] = (t + us, calls + 1)
-        if want is None or any(want in name for name in by_name):
+        missing = [w for w in wants if not any(w in name for name in by_name)]
+        if not missing and events.pads:
             break
-        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no {want}")
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no "
+            + (", ".join(missing) if missing else "pad kernel"))
     return by_name
+
+
+class _Events(list):
+    """A trace's device events, and how many leading pad kernels it kept."""
+    pads = 0
 
 
 def _device_events(fn):
     """[(name, start us, duration us)] of the device ops of one `fn()`, in
-    the order they ran, the leading pad kernels left out."""
+    the order they ran, the leading pad kernels left out (their number kept
+    in `.pads`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -403,7 +472,9 @@ def _device_events(fn):
             events.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
     if pads < PROFILE_PAD:
         log(f"[profile] the trace kept {pads} of {PROFILE_PAD} leading pad kernels")
-    return sorted(events, key=lambda e: e[1])
+    out = _Events(sorted(events, key=lambda e: e[1]))
+    out.pads = pads
+    return out
 
 
 def launch_ms(fns, symbol=None, reps=20):
@@ -1862,8 +1933,15 @@ def draw_lm(cfg, device, full_depth=None):
     reference takes a stacked leaf's fan-in from its stack axis (ROADMAP,
     "Stacked fan-in"), so the cut alone would draw it sqrt(full / cut)
     times wider."""
+    from repro_torch.models.transformer import Transformer
+
+    return Transformer(cfg, params=draw_params(cfg, device, full_depth), device=device)
+
+
+def draw_params(cfg, device, full_depth=None, seed=0):
+    """`draw_lm`'s parameters, as the port's tree (one tree a layer)."""
     from repro_torch.models.param import init_params, tree_map
-    from repro_torch.models.transformer import Transformer, lm_param_specs, unstack_layers
+    from repro_torch.models.transformer import lm_param_specs, unstack_layers
 
     specs = lm_param_specs(cfg)
     if full_depth is not None:
@@ -1871,8 +1949,8 @@ def draw_lm(cfg, device, full_depth=None):
         specs = tree_map(lambda p: dataclasses.replace(p, scale=scale)
                          if p.axes[0] == "stack" and p.init == "normal" and p.scale is None
                          else p, specs)
-    params = init_params(specs, torch.Generator(device=device).manual_seed(0), device)
-    return Transformer(cfg, params=unstack_layers(params, cfg), device=device)
+    return unstack_layers(init_params(specs, torch.Generator(device=device).manual_seed(seed),
+                                      device), cfg)
 
 
 class RouteLog:
@@ -1965,23 +2043,19 @@ def routing_figures(r, k: int) -> dict:
 MOE_KINDS = (("expert GEMMs", ("aten::bmm",)),
              ("router softmax, sort and rank", ("aten::_softmax", "aten::sort",
                                                 "aten::searchsorted", "aten::scatter_add_",
-                                                "aten::masked_fill_")),
+                                                "aten::masked_fill", "aten::masked_fill_")),
              ("dispatch scatter and gather", ("aten::index", "aten::index_put_")),
              ("other GEMMs", ("aten::mm", "aten::addmm")))
 
 
-def profile_moe(what, fn, wall_ms=None) -> dict:
-    """`fn()` under torch.profiler, its device time by kind: the flash
-    kernel by name (it is launched through ctypes, outside any aten op),
-    then MOE_KINDS by the aten op that launched each kernel (the CPU op of
-    its Kineto event's linked correlation id) and that op's callers, the
-    rest "other"; kernels that no aten op launched count as other, and
-    their time is logged. Profiled again, up to PROFILE_TRIES, while the
-    trace holds no flash kernel."""
+def attributed_events(fn, want):
+    """The device ops of one `fn()` under torch.profiler as [(name, us,
+    correlation id of the CPU op that launched it)], and {correlation id:
+    the names of that CPU op and of its callers, innermost first}. Profiled
+    again, up to PROFILE_TRIES, while no device op's name holds `want`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    flash = KERNELS["flash_attention"][2]
     for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1991,12 +2065,15 @@ def profile_moe(what, fn, wall_ms=None) -> dict:
             torch.cuda.synchronize()
         # device events as Kineto gives them: name, us, the correlation id
         # of the CPU op that launched them
+        kineto = [k for k in prof.profiler.kineto_results.events()
+                  if k.device_type() == DeviceType.CUDA]
         device = [(k.name(), k.duration_ns() / 1e3, k.linked_correlation_id())
-                  for k in prof.profiler.kineto_results.events()
-                  if k.device_type() == DeviceType.CUDA and "spin_kernel" not in k.name()]
-        if any(flash in n for n, _, _ in device):
+                  for k in kineto if "spin_kernel" not in k.name()]
+        pads = len(kineto) - len(device)
+        if any(want in n for n, _, _ in device) and pads:
             break
-        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no {flash}")
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: the trace holds no "
+            + ("pad kernel" if any(want in n for n, _, _ in device) else want))
     # a CPU op's FunctionEvent id is its correlation id; several nested ops
     # can share one, so the innermost (the longest chain of callers) wins
     launcher = {}
@@ -2008,6 +2085,19 @@ def profile_moe(what, fn, wall_ms=None) -> dict:
                 p = p.cpu_parent
             if len(chain) > len(launcher.get(e.id, ())):
                 launcher[e.id] = chain
+    return device, launcher
+
+
+def profile_moe(what, fn, wall_ms=None) -> dict:
+    """`fn()` under torch.profiler, its device time by kind: the flash
+    kernel by name (it is launched through ctypes, outside any aten op),
+    then MOE_KINDS by the aten op that launched each kernel (the CPU op of
+    its Kineto event's linked correlation id) and that op's callers, the
+    rest "other"; kernels that no aten op launched count as other, and
+    their time is logged. Profiled again, up to PROFILE_TRIES, while the
+    trace holds no flash kernel."""
+    flash = KERNELS["flash_attention"][2]
+    device, launcher = attributed_events(fn, flash)
     split = dict.fromkeys(["flash_attention", *(k for k, _ in MOE_KINDS), "other"], 0.0)
     unclaimed = 0.0
     for name, us, corr in device:
@@ -2403,6 +2493,390 @@ def moe_card_vs_cpu(device):
         if not err <= CARD_VS_CPU_TOL:
             raise AssertionError(f"card vs CPU {what}: max error / max |value| {err}")
     return dict(errors=out, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: LM training. The flash backward kernel against its plain version,
+# Qwen3-4B trained at full width through `Trainer`, a restart after an
+# injected failure, and a 2-layer training card against CPU
+# ---------------------------------------------------------------------------
+
+
+def bwd_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
+    """Least time of one backward: 10 D flops per weighed pair (the
+    recomputed Q K^T, dV, dP, dQ, dK) at the dtype's dense peak, against q,
+    k, v, o, dO read and dq, dk, dv written once at the HBM rate."""
+    flops = 10 * D * B * Hq * attn_pairs(Sq, Skv, causal, window)
+    nbytes = dtype.itemsize * D * B * (4 * Hq * Sq + 4 * Hkv * Skv)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", flops) if t_ops >= t_bytes else (t_bytes, "bytes", flops)
+
+
+def bwd_branch(dtype, D) -> str:
+    """The <T, kD> a launch of these inputs instantiates, as the profile spells it."""
+    kd = next(b for b in (16, 32, 64, 128) if D <= b)
+    return f"<{BAG_TYPES[dtype]}, {kd}>"
+
+
+def check_flash_bwd_grid(device):
+    """The flash backward kernel against the plain version's autograd
+    (`attention_grads_ref`) on float32 copies of its inputs, TF32 off, at
+    every BWD_SHAPES entry: max |kernel - plain| within BWD_TOL of max
+    |plain| for dq, dk and dv; a second launch bit-equal; each pass's
+    <T, kD> read back from a profile, every branch covered. At the masked
+    rows' shape, a kernel that drops those rows' dV must fail the tolerance.
+    At the first shape (Qwen3-4B's training attention) the kernel's time by
+    profile and by CUDA events, the plain version's and SDPA's backward
+    beside the bound."""
+    with no_tf32():
+        return _check_flash_bwd_grid(device)
+
+
+def _check_flash_bwd_grid(device):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ref import attention_grads_ref
+
+    g = torch.Generator(device=device).manual_seed(0)
+    results, branches, drop_check = [], set(), None
+    for name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype in BWD_SHAPES:
+        q, do = (torch.randn(B, Hq, Sq, D, generator=g, device=device).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=device).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out = flash_attention(q, k, v, **kw)
+        bwd = lambda: flash_attention_bwd(q, k, v, out, do, **kw)
+        got, again = bwd(), bwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash backward at {name}: a second launch differs")
+        want = attention_grads_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+        errs = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+        shares = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+        if not max(shares) <= BWD_TOL[dtype]:
+            raise AssertionError(f"flash backward != plain at {name}: max error / max |grad| "
+                                 f"{shares} (tol {BWD_TOL[dtype]})")
+        first_masked = Skv + window - 1 if window is not None else None
+        if drop_check is None and first_masked is not None and first_masked < Sq:
+            kept = do.float().clone()
+            kept[:, :, first_masked:] = 0  # the rows that see no key send no dV
+            wrong = attention_grads_ref(q.float(), k.float(), v.float(), kept, **kw)[2]
+            drop_check = dict(shape=name, rows=f"{first_masked}..{Sq - 1}",
+                              share=float((wrong - want[2]).abs().max() / want[2].abs().max()))
+            log(f"[flash-bwd] tolerance self-check at {name}: a kernel that drops the dV of "
+                f"rows {drop_check['rows']} (which see no key) errs by "
+                f"{drop_check['share']:.4g} of max |dv|")
+            if not drop_check["share"] > BWD_TOL[dtype]:
+                raise AssertionError("the backward tolerance passes a kernel that drops the "
+                                     "fully masked rows' dV")
+        branch = bwd_branch(dtype, D)
+        passes = tuple(f"{part}{branch}" for part in BWD_PASSES)
+        seen = device_ops(bwd, want=passes)
+        for part in BWD_PASSES:
+            if not any(f"{part}{branch}" in n for n in seen):
+                raise AssertionError(f"{name}: the profile shows no {part}{branch}: {list(seen)}")
+        branches.add(branch)
+        row = dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D, causal=causal,
+                   window=window, softcap=cap, dtype=str(dtype).removeprefix("torch."),
+                   branch=branch, max_abs_err=max(errs), err_share=dict(zip("qkv", shares)),
+                   tol=BWD_TOL[dtype], bit_equal=True)
+        msg = ""
+        if not results:  # the training shape: times
+            reps = 5
+            prof = device_ops(lambda: [bwd() for _ in range(reps)], want=passes)
+            parts = {p: sum(us for n, (us, _) in prof.items() if p in n) / reps / 1e3
+                     for p in BWD_PASSES}
+            row["ms"] = sum(parts.values())
+            row["pass_ms"] = parts
+            row["event_ms"] = median_ms(bwd, reps=reps)
+            row["plain_ms"] = median_ms(lambda: attention_grads_ref(q, k, v, do, **kw), reps=3)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            row["sdpa_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, do, retain_graph=True), reps=reps)
+            del sdpa_out, leaves
+            row["bound_ms"], row["bound_by"], flops = bwd_bound_ms(
+                B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
+            row["tflops"] = flops / row["ms"] / 1e9
+            msg = (f"; kernel {row['ms']:.3f} ms by profile (" +
+                   ", ".join(f"{p.removeprefix('flash_bwd_')} {t:.3f}" for p, t in parts.items())
+                   + f"; {row['event_ms']:.3f} ms by CUDA events; {row['tflops']:.2f} TFLOP/s "
+                   f"of the 10 D flops a pair), plain {row['plain_ms']:.3f} ms, SDPA backward "
+                   f"{row['sdpa_bwd_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                   f"({row['bound_by']})")
+        results.append(row)
+        log(f"[flash-bwd] {name:>28s} {row['dtype']:>8s} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
+            f"D{D} {branch}: max error / max |grad| dq {shares[0]:.3g} dk {shares[1]:.3g} dv "
+            f"{shares[2]:.3g} (tol {BWD_TOL[dtype]}), a repeat bit-equal{msg}")
+        del q, k, v, do, out, got, again, want
+        torch.cuda.empty_cache()
+    every = {bwd_branch(t, d) for t in (torch.float32, torch.bfloat16) for d in (16, 32, 64, 128)}
+    if branches != every:
+        raise AssertionError(f"the grid ran branches {sorted(branches)}, not {sorted(every)}")
+    main = results[0]
+    row = dict(name="flash_attention_bwd", route="cuda", source=KERNELS["flash_attention_bwd"][3],
+               replaces=KERNELS["flash_attention_bwd"][1], launches=0,
+               max_abs_err=max(r["max_abs_err"] for r in results), ms=main["ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=main["sdpa_bwd_ms"],
+               input="Qwen3-4B training attention (BWD_SHAPES[0])",
+               clock="device time from torch.profiler")
+    return row, results, drop_check
+
+
+def profile_train(what, fn) -> dict:
+    """`fn()` (one train step) under torch.profiler, its device time by
+    kind: flash forward and backward by kernel name, the optimizer by the
+    "adamw_update" range that launched its kernels, GEMMs by kernel name,
+    the rest (norms, rope, casts, the loss head's softmax) elementwise."""
+    from repro_torch.train import train_step as TS
+
+    update = TS.adamw_update
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("adamw_update"):
+            return update(*a, **kw)
+
+    TS.adamw_update = ranged
+    try:
+        device, launcher = attributed_events(fn, KERNELS["flash_attention_bwd"][2])
+    finally:
+        TS.adamw_update = update
+    split = dict.fromkeys(TRAIN_KINDS, 0.0)
+    for name, us, corr in device:
+        low = name.lower()
+        if KERNELS["flash_attention"][2] in name:
+            kind = "flash forward"
+        elif KERNELS["flash_attention_bwd"][2] in name:
+            kind = "flash backward"
+        elif "adamw_update" in launcher.get(corr, ()):
+            kind = "optimizer"
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            kind = "GEMMs"
+        else:
+            kind = "elementwise and the rest"
+        split[kind] += us / 1e3
+    total = sum(split.values())
+    log(f"[train] {what}: device time {total:.1f} ms over {len(device)} device ops: " +
+        ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})" for k, v in split.items()))
+    return dict(device_ms=total, device_ops=len(device), **{f"{k}_ms": v for k, v in split.items()})
+
+
+def _trainer(cfg, device, steps, ckpt_dir, ckpt_every, full_depth=None):
+    """A `Trainer` of the LM loss on `cfg`, its grad_accum microbatches of
+    TRAIN_MICRO x TRAIN_SEQ tokens of `token_batch`, warmup TRAIN_WARMUP,
+    logging every step, random weights drawn on the card from seed 0."""
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    batch = TRAIN_MICRO * cfg.grad_accum
+    return Trainer(lambda p, b: T.loss_fn(p, b, cfg),
+                   lambda: draw_params(cfg, device, full_depth),
+                   lambda step: token_batch(step, batch, TRAIN_SEQ, cfg.vocab),
+                   TrainerConfig(total_steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                                 log_every=1, warmup=TRAIN_WARMUP, grad_accum=cfg.grad_accum),
+                   device=device)
+
+
+def lm_train(device):
+    """Phase 9's main path: Qwen3-4B at full width (TRAIN_LAYERS of its
+    layers) trained for TRAIN_STEPS steps through `Trainer`. No checkpoint:
+    one of the whole state (params, m, v) is 44 GB, more than the script
+    writes to disk in all; `lm_train_restart` checkpoints a cut. Launch
+    counts from 0 around the run: each step must launch the
+    flash forward twice a layer a microbatch (remat recomputes it) and the
+    backward once. Each step timed by CUDA events; the loss of every step
+    finite and no step skipped; the peak memory. Then one more step
+    profiled by kind."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.param import param_bytes, param_count
+    from repro_torch.models.transformer import lm_param_specs
+
+    full = qwen3_4b.model_cfg()
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    tokens_per_step = TRAIN_MICRO * cfg.grad_accum * TRAIN_SEQ
+    specs = lm_param_specs(cfg)
+    trainer = _trainer(cfg, device, TRAIN_STEPS, None, TRAIN_STEPS,
+                       full.n_layers if TRAIN_LAYERS < full.n_layers else None)
+    inner, step_ms, step_launches = trainer.step_fn, [], []
+
+    def timed(state, batch):
+        before = dict(LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        step_launches.append({k: v - before.get(k, 0) for k, v in LAUNCHES.items()})
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t = time.perf_counter()
+    state = trainer.run()
+    run_s = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    history = trainer.history
+    losses = [h["loss"] for h in history]
+    per_step = dict(flash_attention=cfg.n_layers * cfg.grad_accum * (2 if cfg.remat else 1),
+                    flash_attention_bwd=cfg.n_layers * cfg.grad_accum)
+    for i, sl in enumerate(step_launches):
+        if sl != per_step:
+            raise AssertionError(f"step {i} launched {sl}, expected {per_step}")
+    if launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"the run launched {launches}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            any(h["skipped"] for h in history):
+        raise AssertionError(f"history {history}")
+    ms = float(np.median(step_ms[1:]))
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"[train] {cfg.name} x{cfg.n_layers} layers at full width, {param_count(specs)} "
+        f"parameters ({param_bytes(specs) / 1e9:.2f} GB bf16), {cfg.grad_accum} microbatches "
+        f"of {TRAIN_MICRO} x {TRAIN_SEQ} tokens a step: {TRAIN_STEPS} steps in {run_s:.1f} s; "
+        f"steps {step_ms[0]:.0f} ms first, then median {ms:.1f} ms "
+        f"({tokens_per_step / ms * 1e3:.0f} tokens/s); peak memory {peak_gb:.2f} GB of "
+        f"{total_gb:.2f}; losses {[round(x, 4) for x in losses]}, none skipped; launches a "
+        f"step {per_step}")
+    batch = {k: torch.as_tensor(v, device=device) for k, v in trainer.batch_fn(TRAIN_STEPS).items()}
+    prof = profile_train("one more train step", lambda: inner(state, batch))
+    del state, trainer, inner, batch
+    torch.cuda.empty_cache()
+    out = dict(model=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+               grad_accum=cfg.grad_accum, micro_batch=TRAIN_MICRO, seq=TRAIN_SEQ,
+               tokens_per_step=tokens_per_step, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+               step_ms=step_ms, step_ms_median_after_first=ms,
+               tokens_per_s=tokens_per_step / ms * 1e3, run_s=run_s, peak_memory_gb=peak_gb,
+               card_memory_gb=total_gb, losses=losses,
+               grad_norms=[h["grad_norm"] for h in history], launches_per_step=per_step,
+               profile=prof)
+    return out, launches
+
+
+def lm_train_restart(device):
+    """A failure injected at step TRAIN_RESTART["fail_at"] of a Qwen3-4B at
+    full width cut to TRAIN_RESTART["layers"] layers (drawn at full depth's
+    scale), checkpointed every TRAIN_RESTART["ckpt_every"] steps into a
+    temporary directory: the trainer restores the last checkpoint, replays
+    the steps after it and finishes; every leaf of its final state
+    (parameters, m, v, count, step) must be bit-equal to that of a run
+    without failure (and without checkpoints: a save changes nothing)."""
+    import tempfile
+
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.models.param import tree_leaves
+
+    full = qwen3_4b.model_cfg()
+    cfg = dataclasses.replace(full, n_layers=TRAIN_RESTART["layers"])
+    steps, every, fail_at = TRAIN_RESTART["steps"], TRAIN_RESTART["ckpt_every"], \
+        TRAIN_RESTART["fail_at"]
+    seen, leaves, secs = [], [], []
+
+    def injector(step):
+        seen.append(step)
+        if step == fail_at and seen.count(step) == 1:
+            raise RuntimeError("injected failure")
+
+    with tempfile.TemporaryDirectory() as d:
+        for ckpt_dir, inject in ((None, None), (d, injector)):
+            t = time.perf_counter()
+            state = _trainer(cfg, device, steps, ckpt_dir, every, full.n_layers).run(inject)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            leaves.append(tree_leaves([state.params, state.opt_state, state.step]))
+            del state
+        written = sorted(p.name for p in Path(d).iterdir())
+        step_gb = sum(f.stat().st_size for f in (Path(d) / written[-1]).iterdir()) / 1e9
+    a, b = leaves
+    replayed = seen[seen.index(fail_at) + 1:]
+    if seen.count(fail_at) != 2 or replayed[0] != fail_at - fail_at % every:
+        raise AssertionError(f"the restarted run took steps {seen}")
+    equal = sum(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"[train] restart: {cfg.name} x{cfg.n_layers} layers at full width, checkpoints every "
+        f"{every} steps ({step_gb:.2f} GB a step; {written} kept), a failure injected at step "
+        f"{fail_at}: steps taken {seen}; {equal} of {len(a)} leaves bit-equal to the run "
+        f"without failure ({secs[0]:.1f} s without, {secs[1]:.1f} s with checkpoints and the "
+        f"restart)")
+    if equal != len(a):
+        raise AssertionError("the restarted run's final state differs from the uninterrupted run's")
+    del leaves, a, b
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, steps=steps, ckpt_every=every, fail_at=fail_at,
+                steps_taken=seen, checkpoint_gb=step_gb, leaves=equal, bit_equal=True,
+                s_uninterrupted=secs[0], s_restarted=secs[1])
+
+
+def lm_train_card_vs_cpu(device):
+    """A 2-layer Qwen3-4B at full width in float32, TF32 off: two
+    `make_train_step` steps (warmup 1, so step 0's learning rate is 0 and
+    step 1's the base rate) of TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens in two
+    microbatches on the card (flash kernels) and on the CPU (plain
+    versions) from the same parameters. After each step: the loss and grad
+    norm within TRAIN_CPU_TOL (relative); m within TRAIN_CPU_TOL of each
+    leaf's max |m| (the gradients, as (1 - b1) g at step 0), v likewise;
+    the parameters within 2 x lr (an Adam step is lr x m/sqrt(v), which a
+    gradient of opposite sign on the two sides moves to the other side),
+    and the share of parameters further apart than 1e-6 logged."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(qwen3_4b.model_cfg(), n_layers=TRAIN_CPU_LAYERS,
+                              dtype=torch.float32, grad_accum=2)
+    params = draw_params(cfg, "cpu", qwen3_4b.model_cfg().n_layers, seed=1)
+    cpu = init_train_state(params)
+    card = init_train_state(tree_map(lambda p: p.to(device, copy=True), params))
+    del params
+    kw = dict(warmup=1, total_steps=10, grad_accum=cfg.grad_accum)
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg), **kw)
+    out = []
+    with no_tf32():
+        for i in range(2):
+            batch = token_batch(i, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, cfg.vocab)
+            before = dict(LAUNCHES)
+            card, m_d = step(card, {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+            torch.cuda.synchronize()
+            ran = {k: LAUNCHES[k] - before.get(k, 0) for k in ("flash_attention",
+                                                               "flash_attention_bwd")}
+            if ran != {"flash_attention": 2 * cfg.n_layers * cfg.grad_accum,
+                       "flash_attention_bwd": cfg.n_layers * cfg.grad_accum}:
+                raise AssertionError(f"the card's step launched {ran}")
+            cpu, m_c = step(cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+            row = dict(step=i, lr=float(m_c["lr"]))
+            for k in ("loss", "grad_norm"):
+                row[k] = abs(float(m_d[k]) - float(m_c[k])) / abs(float(m_c[k]))
+            for name in ("m", "v"):
+                row[name] = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                                for a, b in zip(tree_leaves(card.opt_state[name]),
+                                                tree_leaves(cpu.opt_state[name])))
+            diffs = [(a.detach().cpu() - b.detach()).abs()
+                     for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params))]
+            row["params_max_abs"] = max(float(d.max()) for d in diffs)
+            row["params_share_over_1e-6"] = sum(int((d > 1e-6).sum()) for d in diffs) / \
+                sum(d.numel() for d in diffs)
+            row["params_tol"] = 2 * (sum(r["lr"] for r in out) + row["lr"]) + 1e-6
+            del diffs
+            out.append(row)
+            log(f"[train-cpu] step {i} (lr {row['lr']:.3g}): card vs CPU loss {row['loss']:.3g}, "
+                f"grad norm {row['grad_norm']:.3g} (relative; tol {TRAIN_CPU_TOL}), m "
+                f"{row['m']:.3g}, v {row['v']:.3g} of each leaf's max (tol {TRAIN_CPU_TOL}); "
+                f"parameters max |diff| {row['params_max_abs']:.3g} (tol {row['params_tol']:.3g}), "
+                f"{row['params_share_over_1e-6']:.3g} of them over 1e-6")
+            if not (max(row[k] for k in ("loss", "grad_norm", "m", "v")) <= TRAIN_CPU_TOL
+                    and row["params_max_abs"] <= row["params_tol"]):
+                raise AssertionError(f"training card vs CPU at step {i}: {row}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3118,6 +3592,17 @@ def main() -> int:
     phase_done("qwen2-moe-a2.7b card vs CPU")
     # the kernel line counts flash on every LM path: Qwen3-4B's, then the MoE LMs'
     kernels["flash_attention"]["launches"] += n_qwen_moe + n_dbrx
+    kernels["flash_attention_bwd"], bwd_shapes, bwd_drop = check_flash_bwd_grid(device)
+    phase_done("flash backward checks")
+    train, train_launches = lm_train(device)
+    # and the training path's: forward (remat's recompute included), backward
+    kernels["flash_attention"]["launches"] += train_launches["flash_attention"]
+    kernels["flash_attention_bwd"]["launches"] = train_launches["flash_attention_bwd"]
+    phase_done(f"Qwen3-4B training ({TRAIN_LAYERS} layers)")
+    train["restart"] = lm_train_restart(device)
+    phase_done("training restart")
+    train["card_vs_cpu"] = lm_train_card_vs_cpu(device)
+    phase_done("training card vs CPU")
     kernels["segment_sum"], gnn = gnn_aggregation(device)
     kernels["segment_sum"]["max_abs_err"] = max(kernels["segment_sum"]["max_abs_err"], seg_err)
     phase_done("GNN aggregation")
@@ -3133,6 +3618,8 @@ def main() -> int:
     log(json.dumps({"flash_shapes": flash_shapes, "flash_leak": flash_leak, "lm": lm}))
     log(json.dumps({"gnn": gnn, "din": din, "card_vs_cpu": cpu}))
     log(json.dumps({"moe": moe}))
+    log(json.dumps({"flash_bwd_shapes": bwd_shapes, "flash_bwd_drop_check": bwd_drop,
+                    "train": train}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,9 +11,10 @@ from repro_torch.models.transformer import LMConfig
 def model_cfg() -> LMConfig:
     return LMConfig(name="qwen2.5-14b", n_layers=48, d_model=5120, n_heads=40,
                     n_kv_heads=8, head_dim=128, d_ff=13824, vocab=152064, qkv_bias=True,
-                    rope_theta=1_000_000.0)
+                    rope_theta=1_000_000.0, grad_accum=8)
 
 
 def smoke_cfg() -> LMConfig:
     return LMConfig(name="qwen2.5-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                    head_dim=16, d_ff=128, vocab=256, qkv_bias=True, dtype=torch.float32)
+                    head_dim=16, d_ff=128, vocab=256, qkv_bias=True,
+                    dtype=torch.float32, remat=False)

@@ -14,7 +14,7 @@ def model_cfg() -> LMConfig:
                     n_kv_heads=16, head_dim=128, d_ff=1408, vocab=151936, n_experts=60,
                     n_experts_padded=64,  # the reference pads for its 16-way model axis
                     top_k=4, d_ff_expert=1408, d_ff_shared=5632, qkv_bias=True,
-                    rope_theta=1_000_000.0)
+                    rope_theta=1_000_000.0, grad_accum=4)
 
 
 def smoke_cfg() -> LMConfig:
@@ -22,4 +22,4 @@ def smoke_cfg() -> LMConfig:
                     head_dim=16, d_ff=128, vocab=256, n_experts=4, n_experts_padded=4,
                     top_k=2, d_ff_expert=64, d_ff_shared=128,
                     capacity_factor=8.0,  # drop-free at smoke scale
-                    qkv_bias=True, dtype=torch.float32)
+                    qkv_bias=True, dtype=torch.float32, remat=False)

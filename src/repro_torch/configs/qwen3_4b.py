@@ -11,9 +11,10 @@ from repro_torch.models.transformer import LMConfig
 def model_cfg() -> LMConfig:
     return LMConfig(name="qwen3-4b", n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8,
                     head_dim=128, d_ff=9728, vocab=151936, qk_norm=True,
-                    rope_theta=1_000_000.0)
+                    rope_theta=1_000_000.0, grad_accum=4)
 
 
 def smoke_cfg() -> LMConfig:
     return LMConfig(name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                    head_dim=16, d_ff=128, vocab=256, qk_norm=True, dtype=torch.float32)
+                    head_dim=16, d_ff=128, vocab=256, qk_norm=True,
+                    dtype=torch.float32, remat=False)

@@ -14,6 +14,7 @@ uint16 bits.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from repro_torch.core.storage import StorageTier
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.param import tree_map
 from repro_torch.models.transformer import LMConfig, stack_layers, unstack_layers
+from repro_torch.train.train_step import TrainState, trainable
 
 
 def tensor(x, device: DeviceLike = None) -> torch.Tensor:
@@ -157,3 +159,42 @@ def lm_params_to_reference(params: dict, cfg: LMConfig) -> dict:
     """The port's tree -> the reference's stacked layout as numpy (bfloat16
     leaves as uint16 bits): the inverse of `lm_params_from_reference`."""
     return tree_map(to_numpy, stack_layers(params, cfg))
+
+
+# ---------------------------------------------------------------------------
+# training state
+# ---------------------------------------------------------------------------
+
+
+def train_state_from_reference(state, cfg: Optional[LMConfig] = None,
+                               device: DeviceLike = None) -> TrainState:
+    """The reference's `TrainState` -> the port's: params, m and v through
+    `lm_params_from_reference` (leaf by leaf when cfg is None, for a tree
+    without stacked layers), the parameters made trainable; count and step."""
+    def conv(tree):
+        if cfg is not None:
+            return lm_params_from_reference(tree, cfg, device)
+        return tree_map(lambda a: tensor(a, device), tree)
+
+    opt = state.opt_state
+    return TrainState(params=trainable(conv(state.params)),
+                      opt_state={"m": conv(opt["m"]), "v": conv(opt["v"]),
+                                 "count": tensor(opt["count"], device)},
+                      step=tensor(state.step, device))
+
+
+def train_state_to_reference(state: TrainState, cfg: Optional[LMConfig] = None) -> dict:
+    """The port's `TrainState` -> {"params", "opt_state": {"m", "v", "count"},
+    "step"} as numpy in the reference's layout (stacked when cfg is given;
+    bfloat16 leaves as uint16 bits): the inverse of
+    `train_state_from_reference`."""
+    def conv(tree):
+        if cfg is not None:
+            return lm_params_to_reference(tree, cfg)
+        return tree_map(to_numpy, tree)
+
+    opt = state.opt_state
+    return {"params": conv(state.params),
+            "opt_state": {"m": conv(opt["m"]), "v": conv(opt["v"]),
+                          "count": to_numpy(opt["count"])},
+            "step": to_numpy(state.step)}

@@ -100,6 +100,8 @@ SIGNATURES = {  # C entry point -> its argument types; each returns an int
     "frontier_expand_packed": [_P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P],
     "flash_attention_fwd": [_P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _I64,
                             _I32, _I32, _I32, _I64, _F32, _F32, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64,
+                            _I64, _I64, _I32, _I32, _I32, _I64, _F32, _F32, _P],
     "segment_sum": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I32, _P],
     "embedding_bag": [_P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P],
 }

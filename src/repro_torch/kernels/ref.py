@@ -106,6 +106,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), vr)
 
 
+def attention_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, scale: Optional[float] = None
+                        ) -> tuple:
+    """(dq, dk, dv) of `attention_ref` for the output gradient `do`, by
+    autograd through it: the plain version of the flash backward kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window, softcap=softcap,
+                            scale=scale)
+        return torch.autograd.grad(out, leaves, do)
+
+
 def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None,

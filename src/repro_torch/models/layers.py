@@ -1,6 +1,5 @@
 """Shared layers of the LM, as functions over tensors (the reference's
-`models/layers.py`, same ops in the same order). The loss heads wait for
-the training slice.
+`models/layers.py`, same ops in the same order), with its loss heads.
 
 Float division by a constant goes through `div`: PyTorch's CUDA kernels
 divide by a Python float as a multiply by its reciprocal, which can be an
@@ -13,12 +12,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def div(x: torch.Tensor, value: float) -> torch.Tensor:
     """x / value as a true division on every device, the divisor in x's
-    dtype (as a Python scalar divides in JAX)."""
-    return x / torch.full((1,), value, dtype=x.dtype, device=x.device)
+    dtype (as a Python scalar divides in JAX). A 0-dim x stays 0-dim (its
+    divisor is a 0-dim tensor on x's device, which CUDA divides truly too)."""
+    return x / torch.full((1,) if x.dim() else (), value, dtype=x.dtype, device=x.device)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -53,3 +54,40 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(div(logits, cap))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL of `labels` (int) under `logits` (..., V), in float32; with a
+    mask, the masked mean over at least one."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return div(torch.sum(nll), float(nll.numel()))
+
+
+def _chunk_nll(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+               cap: Optional[float]) -> torch.Tensor:
+    logits = softcap((x @ unembed).float(), cap)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def chunked_unembed_xent(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                         cap: Optional[float] = None, chunk: int = 512) -> torch.Tensor:
+    """Unembed + cross-entropy (mean NLL) of x (B, S, d) against labels
+    (B, S), chunked over the sequence so that the (B, S, V) float32 logits
+    never exist at once: each chunk's summed NLL runs under
+    `torch.utils.checkpoint` (its backward recomputes the chunk's logits),
+    and the sum over chunks is divided by B * S. One whole-logits pass when
+    S % chunk != 0 or S <= chunk, as the reference."""
+    B, S, _ = x.shape
+    if S % chunk != 0 or S <= chunk:
+        return cross_entropy_loss(softcap((x @ unembed).float(), cap), labels)
+    total = None
+    for i in range(0, S, chunk):
+        part = checkpoint(_chunk_nll, x[:, i:i + chunk], unembed, labels[:, i:i + chunk], cap,
+                          use_reentrant=False)
+        total = part if total is None else total + part
+    return div(total, float(B * S))

@@ -105,7 +105,7 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
     if capacity is None:
         capacity = expert_capacity(x.shape[0], cfg)
     probs = torch.softmax(x.float() @ router, dim=-1)
-    probs.masked_fill_(probs < FLT_MIN, 0.0)
+    probs = probs.masked_fill(probs < FLT_MIN, 0.0)  # not in place: softmax's backward reads it
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[:, :k], idx[:, :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -167,7 +167,9 @@ def moe_routed(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
 
 def _frozen(x: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(x, requires_grad=False)
+    """As `transformer._param`: a `nn.Parameter` (a training state's leaf)
+    is held as it is, any other tensor frozen."""
+    return x if isinstance(x, nn.Parameter) else nn.Parameter(x, requires_grad=False)
 
 
 class MoE(nn.Module):

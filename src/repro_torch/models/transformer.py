@@ -5,8 +5,14 @@ Per-architecture flags in `LMConfig`: GQA, QKV bias (qwen2.5), per-head qk
 RMS norm (qwen3), alternating local (sliding-window) / global layers,
 attention and final logit softcaps, post-norms and embedding scaling
 (gemma2), MoE FFNs with a shared expert (qwen2-moe) or without (dbrx):
-`n_experts > 0`, `models/moe.py`. The loss heads and training wait for
-later slices.
+`n_experts > 0`, `models/moe.py`.
+
+Training: `loss_fn` (the module-level function over a parameter tree, and
+the `Transformer` method) is the reference's differentiable loss: the
+trunk, then the seq-chunked unembed + cross-entropy head, plus 0.01 times
+the MoE layers' load-balance loss. With `cfg.remat` each layer group runs
+under `torch.utils.checkpoint`, so the backward recomputes a group from its
+saved input. The serving entry points stay under `torch.no_grad`.
 
 Parameters keep the reference's `(in, out)` layout (`x @ W`). The
 reference stacks each layer parameter along a leading `stack` axis, one
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
@@ -68,6 +75,9 @@ class LMConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True  # training: recompute each layer group in the backward
+    grad_accum: int = 1  # training: microbatches per train step
+    xent_chunk: int = 512  # training: seq chunk of the unembed + CE loss head
     attn_chunk: bool = True  # plain attention by q chunks for long sequences
 
     @property
@@ -184,7 +194,10 @@ def stack_layers(tree: dict, cfg: LMConfig) -> dict:
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(x, requires_grad=False)
+    """A parameter of the tree: one that is already a `nn.Parameter` (a
+    training state's leaf) is held as it is, so gradients reach it; any
+    other tensor is held frozen, as serving holds it."""
+    return x if isinstance(x, nn.Parameter) else nn.Parameter(x, requires_grad=False)
 
 
 class Layer(nn.Module):
@@ -267,6 +280,37 @@ class Transformer(nn.Module):
                 kvs.append(kv)
         return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), routings
 
+    def loss_fn(self, tokens: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """The reference's `loss_fn`, differentiable: tokens and labels (B, S)
+        -> (ce + 0.01 * aux, {"ce", "aux"}), ce the mean NLL of the chunked
+        loss head (`cfg.xent_chunk`), aux as `trunk`'s. Each layer group
+        runs under `torch.utils.checkpoint` when `cfg.remat` is set."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        aux = torch.zeros((), device=x.device)
+        G = cfg.group_size
+        for g in range(cfg.n_groups):
+            group = self.layers[g * G:(g + 1) * G]
+            if cfg.remat:
+                x, aux = checkpoint(self._group, group, x, aux, positions, use_reentrant=False)
+            else:
+                x, aux = self._group(group, x, aux, positions)
+        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+        ce = L.chunked_unembed_xent(x, self.unembed, labels, cap=cfg.final_softcap,
+                                    chunk=cfg.xent_chunk)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _group(self, group, x: torch.Tensor, aux: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One layer group (the reference's scan step), the MoE aux added."""
+        for lp in group:
+            x, r, _ = _layer(lp, x, self.cfg, positions)
+            if r is not None:
+                aux = aux + aux_loss(r)
+        return x, aux
+
     @torch.no_grad()
     def trunk(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Embed + layers + final norm: tokens (B, S) -> (x (B, S, d), aux:
@@ -317,6 +361,15 @@ class Transformer(nn.Module):
             new_layers.append(new_cache)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x[:, -1:, :])[:, 0], {"layers": new_layers}
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> Tuple[torch.Tensor, dict]:
+    """The reference's `loss_fn(params, batch, cfg)` over the port's tree:
+    batch {"tokens", "labels": (B, S)} -> (loss, {"ce", "aux"}). Gradients
+    reach the tree's leaves that are `nn.Parameter`s requiring grad (a
+    `train.TrainState`'s); the model is built around them, on their device."""
+    model = Transformer(cfg, params, device=params["embed"].device)
+    return model.loss_fn(batch["tokens"], batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import LAUNCHES
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 
 ATTN_CASES = [
     # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, dtype)
@@ -204,3 +204,163 @@ def test_split_p_holds_the_bf16_tolerance_where_one_rounding_does_not():
     assert worst["bf16"] > 1 and over["bf16"] > 0
     assert worst["split"] < 0.5 and over["split"] == 0
     assert worst["split"] <= 1.01 * worst["float32"]
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd path on CPU tensors, and the backward kernel's
+# tiled algorithm (csrc/flash_attention_bwd.cu) emulated in float64
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap)
+    (1, 2, 2, 96, 96, 32, True, None, None),
+    (2, 6, 2, 70, 70, 16, True, 24, 20.0),  # GQA 3:1, window and softcap
+    (1, 2, 1, 130, 50, 16, True, 16, None),  # Sq > Skv: rows 65.. see no key
+    (1, 2, 2, 40, 100, 16, False, None, 5.0),  # bidirectional, Sq < Skv
+    (1, 2, 2, 150, 40, 16, False, 30, None),  # bidirectional window, masked rows
+]
+GRAD_TOL = 2e-5  # float32, against the reference's jax.grad, of max |grad|
+
+
+def _grad_inputs(case, dtype=np.float32, seed=0):
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D), (B, Hq, Sq, D))]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cpu_gradients_match_jax_grad_of_the_reference(case):
+    """`ops.attention`'s gradients on CPU tensors (autograd through the plain
+    version, as the wrapper's) and `flash_attention_bwd`'s CPU path against
+    jax.grad of the reference's `attention_ref`."""
+    import jax
+
+    causal, window, softcap = case[6:]
+    q, k, v, do = _grad_inputs(case)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, **kw), q, k, v)
+    want = vjp(do)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.attention(tq, tk, tv, **kw)
+    out.backward(torch.from_numpy(do))
+    direct = flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), out.detach(),
+                                 torch.from_numpy(do), **kw)
+    for g, d, w in zip((tq.grad, tk.grad, tv.grad), direct, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_TOL * np.abs(w).max())
+        assert torch.equal(g, d)
+
+
+def _key_lo(q, window):
+    return 0 if window is None else max(q - window + 1, 0)
+
+
+def _key_hi(q, Skv, causal):
+    return min(q + 1, Skv) if causal else Skv
+
+
+def _emulate_bwd(q, k, v, do, causal, window, softcap, tile=64):
+    """The kernel's three passes over 64-row tiles, in float64: statistics
+    (row max, 1 / denominator over the key tiles a q tile visits; Delta =
+    dO . O), then dK / dV over the q tiles each key tile is visited by, then
+    dQ; dU = P (dP - Delta) (1 - tanh^2) scale, zero where masked."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group, scale = Hq // Hkv, D ** -0.5
+    masked_row = lambda r: _key_lo(r, window) >= _key_hi(r, Skv, causal)
+
+    def key_tiles(q0, q1):  # [q0, q1) rows
+        lo, hi = _key_lo(q0, window), _key_hi(q1 - 1, Skv, causal)
+        if masked_row(q1 - 1):
+            lo, hi = 0, Skv
+        return range(lo // tile, -(-hi // tile) if hi > lo else lo // tile)
+
+    def visits(q0, q1, k0):  # does q tile [q0, q1) visit keys [k0, k0 + tile)?
+        if masked_row(q1 - 1):
+            return True
+        first = max(q0, k0) if causal else q0
+        return first <= q1 - 1 and _key_lo(first, window) < k0 + tile and \
+            _key_hi(first, Skv, causal) > k0
+
+    def tile_terms(b, h, q0, q1, k0, k1, m, rl, delta):
+        qs, ks = torch.arange(q0, q1)[:, None], torch.arange(k0, k1)[None, :]
+        u = (q[b, h, q0:q1] @ k[b, h // group, k0:k1].T) * scale
+        x, dt = u, torch.ones_like(u)
+        if softcap is not None:
+            t = torch.tanh(u / softcap)
+            x, dt = softcap * t, 1 - t * t
+        mask = torch.zeros_like(u, dtype=torch.bool)
+        if causal:
+            mask |= ks > qs
+        if window is not None:
+            mask |= ks <= qs - window
+        x = torch.where(mask, torch.full_like(x, ref.MASK_VALUE), x)
+        if m is None:
+            return x
+        p = torch.exp(x - m[q0:q1, None]) * rl[q0:q1, None]
+        dp = do[b, h, q0:q1] @ v[b, h // group, k0:k1].T
+        du = torch.where(mask, 0.0, p * (dp - delta[q0:q1, None]) * dt * scale)
+        return p, du
+
+    o = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    stats = {}
+    for b in range(B):
+        for h in range(Hq):
+            m = torch.full((Sq,), ref.MASK_VALUE, dtype=q.dtype)
+            l = torch.zeros((Sq,), dtype=q.dtype)
+            for q0 in range(0, Sq, tile):
+                q1 = min(q0 + tile, Sq)
+                for t in key_tiles(q0, q1):
+                    x = tile_terms(b, h, q0, q1, t * tile, min(t * tile + tile, Skv), None,
+                                   None, None)
+                    mx = torch.maximum(m[q0:q1], x.amax(1))
+                    l[q0:q1] = l[q0:q1] * torch.exp(m[q0:q1] - mx) + \
+                        torch.exp(x - mx[:, None]).sum(1)
+                    m[q0:q1] = mx
+            stats[b, h] = (m, 1 / l, (do[b, h] * o[b, h]).sum(1))
+        for hk in range(Hkv):
+            for k0 in range(0, Skv, tile):
+                k1 = min(k0 + tile, Skv)
+                for h in range(hk * group, (hk + 1) * group):
+                    for q0 in range(0, Sq, tile):
+                        q1 = min(q0 + tile, Sq)
+                        if visits(q0, q1, k0):
+                            p, du = tile_terms(b, h, q0, q1, k0, k1, *stats[b, h])
+                            dv[b, hk, k0:k1] += p.T @ do[b, h, q0:q1]
+                            dk[b, hk, k0:k1] += du.T @ q[b, h, q0:q1]
+        for h in range(Hq):
+            for q0 in range(0, Sq, tile):
+                q1 = min(q0 + tile, Sq)
+                for t in key_tiles(q0, q1):
+                    k0, k1 = t * tile, min(t * tile + tile, Skv)
+                    _, du = tile_terms(b, h, q0, q1, k0, k1, *stats[b, h])
+                    dq[b, h, q0:q1] += du @ k[b, h // group, k0:k1]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_tiled_backward_algorithm_matches_autograd(case):
+    """The kernel's algorithm, tile skipping and the masked-row rule included,
+    gives autograd's gradients. On float64 inputs the emulation is float64
+    throughout while the plain version takes its logits in float32, so they
+    differ by float32 rounding (2.5e-7 of max |grad| measured); a skipped
+    tile or a lost masked row would move them by whole terms."""
+    causal, window, softcap = case[6:]
+    q, k, v, do = (torch.from_numpy(a) for a in _grad_inputs(case, np.float64))
+    got = _emulate_bwd(q, k, v, do, causal, window, softcap)
+    want = ref.attention_grads_ref(q, k, v, do, causal=causal, window=window, softcap=softcap)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * w.abs().max().item())
+
+
+def test_masked_rows_send_their_mean_gradient_to_every_value():
+    """Rows that see no key average v, so each of them sends dO / Skv to
+    every key's dv and nothing to dq or dk (Sq > Skv + window - 1)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _grad_inputs((1, 1, 1, 12, 4, 8)))
+    do[:, :, :8] = 0  # only rows 8.. (window 4: rows >= 7 see no key) carry a gradient
+    dq, dk, dv = ref.attention_grads_ref(q, k, v, do, causal=True, window=4)
+    assert torch.count_nonzero(dq) == 0 and torch.count_nonzero(dk) == 0
+    torch.testing.assert_close(dv[0, 0], (do[0, 0, 8:].sum(0) / 4).expand(4, -1))

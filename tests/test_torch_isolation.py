@@ -106,6 +106,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.models.param import init_params
     from repro_torch.models.transformer import Transformer, lm_param_specs
     from repro_torch.serve.engine import EngineRunConfig, ServingEngine
+    from repro_torch.launch.train import build_smoke_training
+    from repro_torch.train import Trainer, TrainerConfig
 
     g, tier, router = _cpu_parts()
     li = build_landmark_index(g, 2, n_landmarks=4, device="cpu")
@@ -127,6 +129,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         lambda: incremental_embed_node(emb, li.dist_to_lm[3]),
         lambda: Transformer(lm_cfg),
         lambda: init_params(lm_param_specs(lm_cfg)),
+        lambda: Trainer(None, dict, dict, TrainerConfig()),
+        lambda: build_smoke_training("qwen3-4b", 2, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -134,6 +138,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     assert resolve_device("cpu") == torch.device("cpu")
     assert ServingEngine(tier, router, cfg, device="cpu").device.type == "cpu"
     assert Transformer(lm_cfg, device="cpu").device.type == "cpu"
+    assert Trainer(None, dict, dict, TrainerConfig(), device="cpu").device.type == "cpu"
 
 
 def test_wrapper_on_cpu_tensors_runs_plain_version_without_counting():
