@@ -145,7 +145,9 @@ KERNELS = {  # wrapper name -> (plain version, TPU kernel it replaces, device sy
 KERNELS_BY_LAYOUT = {"dense": "frontier_expand_batched",
                      "packed": "frontier_expand_packed"}
 TIMING_FIELDS = ("wall_s", "throughput_qps")
-PROFILE_PAD = 64  # spin kernels ahead of a profiled call (see device_ops)
+# spin kernels ahead of a profiled call (see device_ops); late in a long run
+# a trace has lost its first ~70 events, more than 64 pads
+PROFILE_PAD = 512
 # profiles of one call while the trace lacks a kernel sought or kept no
 # pad kernel (the profiler has dropped a short call's events three times in
 # a row, and once the pads and every launch of a backward but its last)
@@ -305,8 +307,10 @@ TEACHER_FORCED_F32_REL_TOL = 1e-2
 # version: (name, B, Hq, Hkv, Sq, Skv, D, causal, window, softcap, dtype);
 # the first is Qwen3-4B's training attention (one microbatch of 4,096
 # tokens), whose times go into the kernel line. Together the shapes take
-# every <T, kD> branch of csrc/flash_attention_bwd.cu, each read back from
-# a profile; "masked rows": rows past Skv + window - 1 see no key.
+# every branch of csrc/flash_attention_bwd.cu, each read back from a
+# profile: float32 <float, kD>, bf16 _tc<kD, kVec> (kVec: D % 8 == 0, so
+# cp.async; else element loads); "masked rows": rows past Skv + window - 1
+# see no key.
 BWD_SHAPES = [
     ("qwen3-4b training", 1, 32, 8, 4096, 4096, 128, True, None, None, BF16),
     ("GQA group 1 (qwen2-moe)", 1, 16, 16, 2048, 2048, 128, True, None, None, BF16),
@@ -321,6 +325,10 @@ BWD_SHAPES = [
     ("bidirectional window, masked rows", 1, 6, 3, 700, 200, 16, False, 64, None, BF16),
     ("D 80", 1, 4, 2, 500, 500, 80, True, None, None, BF16),
     ("D 77, window, softcap", 1, 4, 2, 333, 333, 77, True, 50, 30.0, F32),
+    ("D 77, window, softcap", 1, 4, 2, 333, 333, 77, True, 50, 30.0, BF16),
+    ("D 50, Sq 260 > Skv 190, GQA group 3", 1, 6, 2, 260, 190, 50, True, None, None, BF16),
+    ("D 20, bidirectional, softcap", 2, 2, 1, 150, 170, 20, False, None, 20.0, BF16),
+    ("D 12, masked rows", 1, 2, 2, 300, 100, 12, True, 40, None, BF16),
 ]
 BWD_PASSES = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 # max |kernel - plain| over max |plain| of dq, dk, dv: the bf16 outputs round
@@ -2513,9 +2521,13 @@ def bwd_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype):
 
 
 def bwd_branch(dtype, D) -> str:
-    """The <T, kD> a launch of these inputs instantiates, as the profile spells it."""
+    """The branch a launch of these (aligned) inputs instantiates, as the
+    profile spells it after a pass's name: <float, kD> on the CUDA cores,
+    _tc<kD, kVec> on the tensor cores."""
     kd = next(b for b in (16, 32, 64, 128) if D <= b)
-    return f"<{BAG_TYPES[dtype]}, {kd}>"
+    if dtype == F32:
+        return f"<{BAG_TYPES[dtype]}, {kd}>"
+    return f"_tc<{kd}, {'true' if D % 8 == 0 else 'false'}>"
 
 
 def check_flash_bwd_grid(device):
@@ -2611,7 +2623,8 @@ def _check_flash_bwd_grid(device):
             f"{shares[2]:.3g} (tol {BWD_TOL[dtype]}), a repeat bit-equal{msg}")
         del q, k, v, do, out, got, again, want
         torch.cuda.empty_cache()
-    every = {bwd_branch(t, d) for t in (torch.float32, torch.bfloat16) for d in (16, 32, 64, 128)}
+    every = {bwd_branch(t, d - odd) for t, odd in ((F32, 0), (BF16, 0), (BF16, 1))
+             for d in (16, 32, 64, 128)}  # odd: D % 8 != 0, the bf16 element loads
     if branches != every:
         raise AssertionError(f"the grid ran branches {sorted(branches)}, not {sorted(every)}")
     main = results[0]

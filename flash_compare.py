@@ -14,6 +14,9 @@ kernels against other sources of them, timed on one GPU in turns.
     git archive <rev> src/repro_torch/kernels/csrc/embedding_bag.cu | tar -x -C build/other
     python3 flash_compare.py --bag build/other/src/repro_torch/kernels/csrc/embedding_bag.cu
 
+    git archive <rev> src/repro_torch/kernels/csrc/flash_attention_bwd.cu | tar -x -C build/other
+    python3 flash_compare.py --bwd build/other/src/repro_torch/kernels/csrc/flash_attention_bwd.cu
+
 Each other source is built in a copy of the port's sources, in place of
 this tree's file of the same name (`kernels.build`, all builds together),
 so it must export the C entry points with the signatures `kernels/build.py`
@@ -50,6 +53,17 @@ reverse, each turn one profile of a batch's four calls
 (`chip_smoke.launch_ms`), beside the bounds and the all-sectors-from-HBM
 estimate (`chip_smoke.bag_bounds_ms`); then this tree's kernel at serve_bulk on
 probes that change only where its rows come from (`bag_probes`).
+
+Flash backward (`--bwd`, one or more other sources): at every bf16 shape
+of `chip_smoke.py`'s BWD_SHAPES (Qwen3-4B's training attention first),
+each source's `flash_attention_bwd` launched directly with the wrapper's
+arguments (`flash_attention.bwd_args`) and held within BWD_TOL of the plain
+version's autograd on float32 copies (TF32 off); the sources need not be
+bit-equal to each other. Then the others, this, this, the others in
+reverse, each turn one profile of every shape's backward (the sum of its
+three launches, `chip_smoke.launch_ms`) and CUDA events a shape, beside
+SDPA's backward where it computes the same function (no window, no cap) and
+the bound (`chip_smoke.bwd_bound_ms`).
 
 One JSON line a shape, then the card's name and power limit. Needs a CUDA
 device; imports no JAX.
@@ -151,6 +165,75 @@ def compare_flash(other: Path, dev) -> None:
                               speedup=float(np.mean(ms["other"]) / np.mean(ms["this"])))),
               flush=True)
         del q, k, v
+
+
+def run_bwd(lib, q, k, v, out, do, kw):
+    """(dq, dk, dv) from `lib`'s `flash_attention_bwd`, launched directly."""
+    from repro_torch.kernels.build import launch
+    from repro_torch.kernels.flash_attention import bwd_args
+
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    work = torch.empty(3 * q.shape[0] * q.shape[1] * q.shape[2], dtype=torch.float32,
+                       device=q.device)
+    launch("flash_compare", lib.flash_attention_bwd, q.device,
+           *bwd_args(q, k, v, out, do, *grads, work, scale=None, **kw))
+    return grads
+
+
+def compare_bwd(others: list, dev) -> None:
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_grads_ref
+
+    names = [str(o) for o in others] + ["this"]
+    libs = dict(zip(names, load_variants("flash_attention_bwd.cu", others) + [load_library()]))
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = []
+    with cs.no_tf32():
+        for shape in (s for s in cs.BWD_SHAPES if s[-1] == cs.BF16):
+            name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype = shape
+            q, do = (torch.randn(B, Hq, Sq, D, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            out = flash_attention(q, k, v, **kw)
+            want = attention_grads_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+            share = {}
+            for n, lib in libs.items():
+                got = run_bwd(lib, q, k, v, out, do, kw)
+                share[n] = max(float((a.float() - w).abs().max() / w.abs().max())
+                               for a, w in zip(got, want))
+                if not share[n] <= cs.BWD_TOL[dtype]:
+                    raise AssertionError(f"{n}: flash backward != plain at {name}: max error / "
+                                         f"max |grad| {share[n]} (tol {cs.BWD_TOL[dtype]})")
+            print(f"[check] {name}: max error / max |grad| " +
+                  ", ".join(f"{n} {x:.4g}" for n, x in share.items()), flush=True)
+            shapes.append((shape, (q, k, v, out, do, kw), share))
+            del want
+    fns = {n: [lambda lib=lib, t=t: run_bwd(lib, *t) for _, t, _ in shapes]
+           for n, lib in libs.items()}
+    prof, events = {n: [] for n in names}, {n: [] for n in names}
+    for n in turns(names):
+        prof[n].append(cs.launch_ms(fns[n], reps=10))
+        events[n].append([cs.median_ms(fn, reps=10) for fn in fns[n]])
+    for i, ((name, B, Hq, Hkv, Sq, Skv, D, causal, window, cap, dtype), t, share) in \
+            enumerate(shapes):
+        sdpa = None
+        if window is None and cap is None:
+            leaves = [x.detach().requires_grad_() for x in t[:3]]
+            o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                                 enable_gqa=True)
+            sdpa = cs.median_ms(lambda: torch.autograd.grad(o, leaves, t[4], retain_graph=True),
+                                reps=10)
+            del o, leaves
+        bound, by, _ = cs.bwd_bound_ms(B, Hq, Hkv, Sq, Skv, D, causal, window, dtype)
+        print(json.dumps(dict(shape=name, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D,
+                              causal=causal, window=window, softcap=cap,
+                              profile_ms={n: [x[i] for x in v] for n, v in prof.items()},
+                              event_ms={n: [x[i] for x in v] for n, v in events.items()},
+                              err_share=share, sdpa_bwd_ms=sdpa, bound_ms=bound, bound_by=by)),
+              flush=True)
 
 
 def run_segment(lib, values, order, offsets, n):
@@ -313,11 +396,14 @@ def main() -> int:
                     help="other frontier.cu sources to time against this tree's")
     ap.add_argument("--bag", type=Path, nargs="+", metavar="EMBEDDING_BAG_CU",
                     help="other embedding_bag.cu sources to time against this tree's")
+    ap.add_argument("--bwd", type=Path, nargs="+", metavar="FLASH_ATTENTION_BWD_CU",
+                    help="other flash_attention_bwd.cu sources to time against this tree's")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    if sum(x is not None for x in (args.other, args.segment, args.frontier, args.bag)) != 1:
-        ap.error("give one flash_attention.cu, or --segment, --frontier or --bag with other "
-                 "sources")
+    modes = (args.other, args.segment, args.frontier, args.bag, args.bwd)
+    if sum(x is not None for x in modes) != 1:
+        ap.error("give one flash_attention.cu, or --segment, --frontier, --bag or --bwd with "
+                 "other sources")
     if not torch.cuda.is_available():
         print("flash_compare: no CUDA device", file=sys.stderr)
         return 1
@@ -328,6 +414,8 @@ def main() -> int:
         compare_frontier([p.resolve() for p in args.frontier], dev)
     elif args.bag:
         compare_bag([p.resolve() for p in args.bag], dev)
+    elif args.bwd:
+        compare_bwd([p.resolve() for p in args.bwd], dev)
     else:
         compare_flash(args.other.resolve(), dev)
     print(cs.nvidia_smi())

@@ -4,9 +4,10 @@ The CUDA kernels are in `csrc/flash_attention.cu` (forward) and
 `csrc/flash_attention_bwd.cu` (backward); see their headers for what they
 replace, their design and what bounds them. The forward's route is chosen
 by dtype alone: bfloat16 runs on the tensor cores (bf16 MMAs, P @ V in two
-bf16 halves of P), float32 on the CUDA cores (float32 FMAs). The backward
-runs float32 FMAs on the CUDA cores for both dtypes (three launches:
-statistics, dK / dV, dQ).
+bf16 halves of P), float32 on the CUDA cores (float32 FMAs). So is the
+backward's (three launches: statistics, dK / dV, dQ): bfloat16 runs all
+five products on the tensor cores (bf16 MMAs, P rounded once, dU in two
+bf16 halves), float32 runs float32 FMAs on the CUDA cores.
 
 `flash_attention` is differentiable: on CUDA tensors it is an autograd
 `Function` whose forward launches the forward kernel and whose backward
@@ -127,11 +128,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     work = torch.empty(3 * B * Hq * Sq, dtype=torch.float32, device=q.device)  # statistics
     launch("flash_attention_bwd", load_library().flash_attention_bwd, q.device,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), _DTYPES[q.dtype],
-           B, Hq, Hkv, Sq, Skv, D, int(causal), int(window is not None),
-           0 if window is None else int(window), float(softcap or 0.0),
-           float(scale if scale is not None else 1.0 / (D ** 0.5)))
+           *bwd_args(q, k, v, out, do, dq, dk, dv, work, causal, window, softcap, scale))
     return dq, dk, dv
 
 
@@ -147,3 +144,18 @@ def fwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
             B, Hq, Hkv, Sq, Skv, D, int(causal), int(window is not None),
             0 if window is None else int(window), float(softcap or 0.0), float(scale_v))
 
+
+def bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+             work: torch.Tensor, causal: bool, window: Optional[int],
+             softcap: Optional[float], scale: Optional[float]) -> tuple:
+    """`flash_attention_bwd`'s C arguments before the stream, for checked
+    CUDA tensors, the gradients and a float32 workspace of 3 * B * Hq * Sq;
+    `flash_compare.py --bwd` launches an older kernel with them."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale_v = scale if scale is not None else 1.0 / (D ** 0.5)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), _DTYPES[q.dtype],
+            B, Hq, Hkv, Sq, Skv, D, int(causal), int(window is not None),
+            0 if window is None else int(window), float(softcap or 0.0), float(scale_v))

@@ -260,15 +260,28 @@ def _key_hi(q, Skv, causal):
     return min(q + 1, Skv) if causal else Skv
 
 
-def _emulate_bwd(q, k, v, do, causal, window, softcap, tile=64):
+def _bf16_operand(x, way):
+    """x as a bf16 operand of the tensor cores: rounded once ("bf16") or as
+    two halves hi + lo ("split"), hi = bf16(x) and lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi if way == "bf16" else hi + (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def _emulate_bwd(q, k, v, do, causal, window, softcap, tile=64, rounding=None, out=None):
     """The kernel's three passes over 64-row tiles, in float64: statistics
     (row max, 1 / denominator over the key tiles a q tile visits; Delta =
     dO . O), then dK / dV over the q tiles each key tile is visited by, then
-    dQ; dU = P (dP - Delta) (1 - tanh^2) scale, zero where masked."""
+    dQ; dU = P (dP - Delta) (1 - tanh^2), zero where masked, and the scale
+    on the sums of dK and dQ. `rounding` (P's way, dU's way), as
+    `_bf16_operand` takes them, rounds those operands before their
+    products, as the bf16 route does, and rounds the outputs to bf16; None
+    rounds nothing. `out` is the forward's output (default: float64)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group, scale = Hq // Hkv, D ** -0.5
     masked_row = lambda r: _key_lo(r, window) >= _key_hi(r, Skv, causal)
+    p_op, du_op = ((lambda x, w=w: x if w is None else _bf16_operand(x, w))
+                   for w in rounding or (None, None))
 
     def key_tiles(q0, q1):  # [q0, q1) rows
         lo, hi = _key_lo(q0, window), _key_hi(q1 - 1, Skv, causal)
@@ -300,10 +313,11 @@ def _emulate_bwd(q, k, v, do, causal, window, softcap, tile=64):
             return x
         p = torch.exp(x - m[q0:q1, None]) * rl[q0:q1, None]
         dp = do[b, h, q0:q1] @ v[b, h // group, k0:k1].T
-        du = torch.where(mask, 0.0, p * (dp - delta[q0:q1, None]) * dt * scale)
+        du = torch.where(mask, 0.0, p * (dp - delta[q0:q1, None]) * dt)
         return p, du
 
-    o = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    o = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap) \
+        if out is None else out
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     stats = {}
     for b in range(B):
@@ -328,16 +342,19 @@ def _emulate_bwd(q, k, v, do, causal, window, softcap, tile=64):
                         q1 = min(q0 + tile, Sq)
                         if visits(q0, q1, k0):
                             p, du = tile_terms(b, h, q0, q1, k0, k1, *stats[b, h])
-                            dv[b, hk, k0:k1] += p.T @ do[b, h, q0:q1]
-                            dk[b, hk, k0:k1] += du.T @ q[b, h, q0:q1]
+                            dv[b, hk, k0:k1] += p_op(p).T @ do[b, h, q0:q1]
+                            dk[b, hk, k0:k1] += du_op(du).T @ q[b, h, q0:q1]
         for h in range(Hq):
             for q0 in range(0, Sq, tile):
                 q1 = min(q0 + tile, Sq)
                 for t in key_tiles(q0, q1):
                     k0, k1 = t * tile, min(t * tile + tile, Skv)
                     _, du = tile_terms(b, h, q0, q1, k0, k1, *stats[b, h])
-                    dq[b, h, q0:q1] += du @ k[b, h // group, k0:k1]
-    return dq, dk, dv
+                    dq[b, h, q0:q1] += du_op(du) @ k[b, h // group, k0:k1]
+    grads = dq * scale, dk * scale, dv
+    if rounding is None:
+        return grads
+    return tuple(g.to(torch.bfloat16).to(q.dtype) for g in grads)
 
 
 @pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -364,3 +381,45 @@ def test_masked_rows_send_their_mean_gradient_to_every_value():
     dq, dk, dv = ref.attention_grads_ref(q, k, v, do, causal=True, window=4)
     assert torch.count_nonzero(dq) == 0 and torch.count_nonzero(dk) == 0
     torch.testing.assert_close(dv[0, 0], (do[0, 0, 8:].sum(0) / 4).expand(4, -1))
+
+
+# The backward kernel's bf16 route multiplies on the tensor cores, so P
+# (for dV) and dU (for dK and dQ) become bf16 operands. chip_smoke.py holds
+# it within BWD_TOL[bf16] = 2^-7 of max |grad| (max error over max |plain|
+# of dq, dk and dv); its rounding is the one that stays under half of that
+# here: P once, dU in two halves (one rounding of dU took dq and dk to
+# about half the tolerance at some seeds).
+KERNEL_ROUNDING = ("bf16", "split")  # (P, dU), as _bf16_operand takes them
+BWD_TOL_BF16 = 2.0 ** -7  # chip_smoke.py BWD_TOL[torch.bfloat16]
+ROUNDING_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, window, softcap): training-like heads
+    (1, 2, 1, 1024, 1024, 128, True, None, None),
+    (1, 2, 1, 1024, 700, 128, True, 256, 50.0),  # rows 955.. see no key
+]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", ROUNDING_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_rounding_holds_half_the_bf16_tolerance(case, seed):
+    """The bf16 route's rounding (KERNEL_ROUNDING) on bf16-valued inputs,
+    outputs rounded to bf16, against float64 autograd of the plain
+    version: max error / max |grad| of dq, dk and dv under half of the
+    card's tolerance. Beside it, the unrounded emulation (float64
+    throughout), one rounding of both, and the kernel's rounding with O as
+    the bf16 forward hands it over (Delta = dO . O then carries O's
+    rounding)."""
+    causal, window, softcap = case[6:]
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).double()
+                   for a in _grad_inputs(case, np.float64, seed))
+    want = ref.attention_grads_ref(q, k, v, do, causal=causal, window=window, softcap=softcap)
+    o_bf16 = ref.attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap).to(torch.bfloat16).double()
+    ways = {"unrounded": (None, None), "bf16 once": (("bf16", "bf16"), None),
+            "kernel": (KERNEL_ROUNDING, None), "kernel, bf16 O": (KERNEL_ROUNDING, o_bf16)}
+    share = {}
+    for name, (rounding, out) in ways.items():
+        got = _emulate_bwd(q, k, v, do, causal, window, softcap, rounding=rounding, out=out)
+        share[name] = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    print(f"seed {seed}: max error / max |grad| (tol {BWD_TOL_BF16:.4g}): " +
+          ", ".join(f"{n} {x:.4g}" for n, x in share.items()))
+    assert share["kernel"] < BWD_TOL_BF16 / 2
