@@ -162,8 +162,22 @@ def lm_params_to_reference(params: dict, cfg: LMConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training state
+# parameter trees and training state
 # ---------------------------------------------------------------------------
+
+
+def params_from_reference(tree, device: DeviceLike = None):
+    """A reference parameter tree of dicts and lists (the GNN and recsys
+    zoo's, or any tree without stacked layers) -> the same tree of tensors
+    on `device`, leaf by leaf."""
+    return tree_map(lambda a: tensor(a, device), tree)
+
+
+def params_to_reference(tree):
+    """The port's tree -> the same tree of numpy arrays (bfloat16 leaves as
+    uint16 bits): the inverse of `params_from_reference`."""
+    return tree_map(to_numpy, tree)
+
 
 
 def train_state_from_reference(state, cfg: Optional[LMConfig] = None,
@@ -174,7 +188,7 @@ def train_state_from_reference(state, cfg: Optional[LMConfig] = None,
     def conv(tree):
         if cfg is not None:
             return lm_params_from_reference(tree, cfg, device)
-        return tree_map(lambda a: tensor(a, device), tree)
+        return params_from_reference(tree, device)
 
     opt = state.opt_state
     return TrainState(params=trainable(conv(state.params)),
@@ -191,7 +205,7 @@ def train_state_to_reference(state: TrainState, cfg: Optional[LMConfig] = None) 
     def conv(tree):
         if cfg is not None:
             return lm_params_to_reference(tree, cfg)
-        return tree_map(to_numpy, tree)
+        return params_to_reference(tree)
 
     opt = state.opt_state
     return {"params": conv(state.params),

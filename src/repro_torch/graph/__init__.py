@@ -1,1 +1,2 @@
-"""Graph substrate (numpy): CSR layouts, generators, hash placement."""
+"""Graph substrate (numpy): CSR layouts, generators, hash placement and the
+fanout neighbor sampler."""

@@ -68,13 +68,26 @@ class PaddedAdjacency:
         return int(self.rows.shape[1])
 
 
+def sorted_unique(a: np.ndarray, return_index: bool = False):
+    """`np.unique(a)` (and the first index of each value with return_index)
+    by one sort and a flag of the first of each run: the same arrays.
+    numpy 2.3's `np.unique` took 199 s on 57 M int64 keys where `np.sort`
+    took 1.1 s."""
+    a = np.asarray(a).ravel()
+    order = np.argsort(a, kind="stable") if return_index else None
+    s = a[order] if return_index else np.sort(a)
+    first = np.empty(s.size, bool)
+    first[:1] = True
+    np.not_equal(s[1:], s[:-1], out=first[1:])
+    return (s[first], order[first]) if return_index else s[first]
+
+
 def build_csr(n: int, src: np.ndarray, dst: np.ndarray, dedup: bool = True) -> CSRGraph:
     """Build CSR from an edge list (directed src->dst)."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     if dedup and src.size:
-        key = src * n + dst
-        key = np.unique(key)
+        key = sorted_unique(src * n + dst)
         src, dst = key // n, key % n
     order = np.argsort(src, kind="stable")
     src, dst = src[order], dst[order]

@@ -158,13 +158,38 @@ def segment_sum_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     return out.index_add_(0, segment_slots(seg_ids, num_segments), values.to(acc))[:num_segments]
 
 
+class _SegmentMax(torch.autograd.Function):
+    """Per-slot maximum of values' rows, (num_slots, D), empty slots 0. Its
+    gradient goes to the rows equal to their slot's maximum, split evenly
+    among tied rows as the reference's (`jax.ops.segment_max`) is: the
+    gradient of `scatter_reduce(include_self=False)` would count the zero it
+    starts from as a tie wherever a slot's maximum is 0."""
+
+    @staticmethod
+    def forward(ctx, values, slots, num_slots):
+        idx = slots[:, None].expand_as(values)  # a view, no copy
+        out = values.new_zeros((num_slots, values.shape[1]))
+        out.scatter_reduce_(0, idx, values, "amax", include_self=False)
+        ctx.save_for_backward(values, slots, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        values, slots, out = ctx.saved_tensors
+        idx = slots[:, None].expand_as(values)
+        win = values == out.gather(0, idx)
+        ties = torch.zeros_like(out).scatter_add_(0, idx, win.to(out.dtype))
+        share = torch.reciprocal(ties.clamp_(min=1))  # g * (1 / ties), as the reference
+        return torch.where(win, grad.gather(0, idx) * share.gather(0, idx), 0), None, None
+
+
 def segment_max_ref(values: torch.Tensor, seg_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
     """Per-segment maximum in values' dtype; dropped ids as in
-    `segment_sum_ref`, and empty segments are 0 (not -inf)."""
-    idx = segment_slots(seg_ids, num_segments)[:, None].expand_as(values)  # a view, no copy
-    out = values.new_zeros((num_segments + 1, values.shape[1]))
-    return out.scatter_reduce_(0, idx, values, "amax", include_self=False)[:num_segments]
+    `segment_sum_ref`, and empty segments are 0 (not -inf). Differentiable:
+    tied maxima share their segment's gradient evenly, dropped rows get 0."""
+    slots = segment_slots(seg_ids, num_segments)
+    return _SegmentMax.apply(values, slots, num_segments + 1)[:num_segments]
 
 
 def segment_mean_ref(values: torch.Tensor, seg_ids: torch.Tensor,

@@ -1,3 +1,4 @@
-"""Models of the port: the dense decoder-only LM (`transformer`), its
-parameter specs (`param`) and shared layers (`layers`), and the GNN
-message-passing primitives (`gnn.message_passing`)."""
+"""Models of the port: the dense and MoE decoder-only LM (`transformer`,
+`moe`), their parameter specs (`param`) and shared layers (`layers`), the
+GNN zoo (`gnn`: message passing, EGNN, PNA, EquiformerV2, GraphCast) and
+the recsys model (`recsys.din`)."""

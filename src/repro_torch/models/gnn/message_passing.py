@@ -4,8 +4,9 @@ reference's `models/gnn/message_passing.py`.
 `aggregate` reaches the segment-sum kernel through `kernels.ops` unless
 `use_kernel=False`, as the reference's reaches its Pallas kernel unless
 `use_pallas=False`. `degree` and `segment_softmax` use plain segment
-reductions, as the reference's call `jax.ops.segment_*` directly.
-`shard_graph_batch` (sharding constraints) comes with distributed GNNs.
+reductions, as the reference's call `jax.ops.segment_*` directly. `rows`
+gathers node rows for edges, as the zoo's models do. `shard_graph_batch`
+(sharding constraints) comes with distributed GNNs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,14 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import ops, ref
+
+
+def rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the first axis by `index_select`: its backward is an
+    `index_add_` of the rows, where `x[idx]`'s (`index_put_` with
+    accumulate) takes repeated ids one after another, and a node is read by
+    each of its edges."""
+    return torch.index_select(x, 0, idx)
 
 
 def degree(dst: torch.Tensor, n: int) -> torch.Tensor:
@@ -27,7 +36,8 @@ def aggregate(messages: torch.Tensor, dst: torch.Tensor, n: int,
               kinds: Sequence[str] = ("sum",), use_kernel="auto") -> list:
     """Multi-aggregator segment reduce; returns one (n, D) tensor per kind
     of "sum", "mean", "max", "min", "std". "std" is
-    sqrt(max(mean(m^2) - mean(m)^2, 0) + 1e-6)."""
+    sqrt(max(mean(m^2) - mean(m)^2, 0) + 1e-6). Differentiable on the plain
+    path (`use_kernel=False`), with the reference's gradients at ties."""
     out = []
     for kind in kinds:
         if kind == "sum":
@@ -41,7 +51,10 @@ def aggregate(messages: torch.Tensor, dst: torch.Tensor, n: int,
         elif kind == "std":
             m1 = ops.segment_mean(messages, dst, n, use_kernel=use_kernel)
             m2 = ops.segment_mean(messages * messages, dst, n, use_kernel=use_kernel)
-            out.append(torch.sqrt(torch.clamp(m2 - m1 * m1, min=0.0) + 1e-6))
+            # maximum, not clamp: at a tie (one message, or all equal) its
+            # gradient is half, as jnp.maximum's
+            var = m2 - m1 * m1
+            out.append(torch.sqrt(torch.maximum(var, var.new_zeros(())) + 1e-6))
         else:
             raise ValueError(kind)
     return out
@@ -59,6 +72,6 @@ def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Te
     smax = neg.new_full((n + 1, scores.shape[1]), -torch.inf).scatter_reduce_(
         0, slot, torch.where(ok, scores, neg), "amax")[:n]
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
-    ex = torch.where(ok, torch.exp(scores - smax[gather]), 0.0)
+    ex = torch.where(ok, torch.exp(scores - rows(smax, gather)), 0.0)
     denom = ref.segment_sum_ref(ex, dst, n)
-    return ex / torch.clamp(denom[gather], min=1e-9)
+    return ex / torch.clamp(rows(denom, gather), min=1e-9)

@@ -1,5 +1,6 @@
-"""Shared layers of the LM, as functions over tensors (the reference's
-`models/layers.py`, same ops in the same order), with its loss heads.
+"""Shared layers of the LM and the GNN / recsys zoo, as functions over
+tensors (the reference's `models/layers.py`, same ops in the same order),
+with its loss heads.
 
 Float division by a constant goes through `div`: PyTorch's CUDA kernels
 divide by a Python float as a multiply by its reciprocal, which can be an
@@ -30,6 +31,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim in float32 (the biased variance, as
+    `jnp.var`); output in x's dtype."""
+    xf = x.float()
+    c = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    return (c * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding on the last dim, split-half convention; frequencies
     and angles in float32. x: (..., S, D); positions: (..., S) int."""
@@ -49,6 +60,32 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: Optional[torch.Tensor],
+             w_out: torch.Tensor, b_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """gelu(x @ w_in + b_in) @ w_out + b_out, biases optional. gelu is the
+    tanh approximation, `jax.nn.gelu`'s default (`F.gelu`'s is the exact
+    erf form)."""
+    h = x @ w_in
+    if b_in is not None:
+        h = h + b_in
+    o = F.gelu(h, approximate="tanh") @ w_out
+    return o if b_out is None else o + b_out
+
+
+def mlp_stack(x: torch.Tensor, weights, biases, act=F.relu,
+              final_act: bool = False) -> torch.Tensor:
+    """x through the layers (w, b) (b may be None), `act` after each but the
+    last (and after the last too with final_act)."""
+    n = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        x = x @ w
+        if b is not None:
+            x = x + b
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """cap * tanh(logits / cap); None leaves the logits as they are."""
     if cap is None:
@@ -65,6 +102,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
     return div(torch.sum(nll), float(nll.numel()))
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over every entry, the mean a true division."""
+    d = pred - target
+    return div(torch.sum(d * d), float(d.numel()))
 
 
 def _chunk_nll(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
