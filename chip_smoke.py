@@ -97,7 +97,19 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      every loss finite, no step skipped, no hand-written kernel launched
      (the zoo runs the plain segment ops, as the reference); then two
      steps of each arch's smoke config on the card and on the CPU held
-     together.
+     together;
+ 11. serves the paper's own system at the grouting configuration
+     (`configs/grouting.py`): a 4,194,304-node power-law graph padded to
+     32-wide rows, its landmark index and embedding built on the card, the
+     three shapes (serve_hot_3hop, serve_1hop, serve_bulk) through the
+     distributed serving step at a world of one over NCCL with the 2-hop
+     hotspot stream in oversubscribed bursts, then the drain; every burst
+     equal across {cuda, scatter} x {dense, packed}, every query that
+     `hhop_ball` shows untruncated counting |N_h(q)| - 1, every query
+     counting what a numpy search under the step's caps marks, one burst
+     of each cuda run profiled; then the serving launcher
+     (`launch/serve.py --scheme landmark`), its landmark index on the card
+     bit-equal to the CPU's, its row derived from the cost model.
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases; for
@@ -494,7 +506,10 @@ class _Events(list):
 def _device_events(fn):
     """[(name, start us, duration us)] of the device ops of one `fn()`, in
     the order they ran, the leading pad kernels left out (their number kept
-    in `.pads`)."""
+    in `.pads`); starts count from the trace's first device op. Read from
+    Kineto's own list: `prof.events()` builds an event tree in Python,
+    seconds for a call of ~10^4 device ops; the list holds the same ops
+    and durations at a small part of that cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -504,13 +519,15 @@ def _device_events(fn):
             torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
+    device = [k for k in prof.profiler.kineto_results.events()
+              if k.device_type() == DeviceType.CUDA]
+    t0 = min((k.start_ns() for k in device), default=0)  # epoch ns, past float64's ns
     events, pads = [], 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if "spin_kernel" in e.name:
-                pads += 1
-                continue
-            events.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
+    for k in device:
+        if "spin_kernel" in k.name():
+            pads += 1
+            continue
+        events.append((k.name(), (k.start_ns() - t0) / 1e3, k.duration_ns() / 1e3))
     if pads < PROFILE_PAD:
         log(f"[profile] the trace kept {pads} of {PROFILE_PAD} leading pad kernels")
     out = _Events(sorted(events, key=lambda e: e[1]))
@@ -3925,6 +3942,354 @@ def zoo_training(device) -> dict:
     return dict(gnn=gnn, din=din, card_vs_cpu=zoo_card_vs_cpu(device))
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paper's own system at the grouting configuration
+# ---------------------------------------------------------------------------
+
+# the graph at the serving launcher's degree (launch/serve.py --degree) and
+# landmark count (--landmarks): 4,194,304 x 32 int32 distances, 537 MB
+GROUTING_DEGREE = 8
+GROUTING_LANDMARKS = 32
+# the embed router's training steps (launch/serve_graph.py), at the
+# configuration's embed_dim
+GROUTING_EMBED_STEPS = dict(lm_steps=200, node_steps=80)
+# the 2-hop hotspot stream of configs/grouting.py; the bursts wrap around
+# its 96 queries, so later bursts revisit hotspots and the caches warm
+GROUTING_WORKLOAD = dict(r=2, n_hotspots=8, queries_per_hotspot=12, seed=1)
+GROUTING_BURSTS = 6  # arrival bursts a run (1.5x the slots each), then the drain
+GROUTING_BACKLOG = 64
+GROUTING_WARM = 2  # bursts before the per-burst figures count
+GROUTING_PROFILED = 3  # the burst of each cuda run that runs under the profiler
+GROUTING_BACKENDS = ("cuda", "scatter")
+
+
+def profiled_burst(b, fn, kind, prof):
+    """`serve_bursts`' on_step hook: burst GROUTING_PROFILED's step runs
+    under torch.profiler (again, up to PROFILE_TRIES, while the trace lacks
+    the frontier kernel or its pads; the step is a function of its inputs,
+    so a try recomputes the same burst, and its launches are set apart in
+    `prof["extra_launches"]`). Fills `prof` with the kernel's launches and
+    µs a launch, and the device's busy share: the union of the device ops'
+    intervals over the profiled call's wall (CUDA events)."""
+    if b != GROUTING_PROFILED:
+        return fn()
+    from repro_torch.kernels.build import LAUNCHES
+
+    symbol = KERNELS[kind][2]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    box = {}
+
+    def timed():
+        ev[0].record()
+        box["out"] = fn()
+        ev[1].record()
+
+    prof["extra_launches"] = 0
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = LAUNCHES[kind]
+        events = _device_events(timed)
+        k_us = [us for name, _, us in events if symbol in name]
+        if k_us and events.pads:
+            break
+        prof["extra_launches"] += LAUNCHES[kind] - before
+        log(f"[profile] try {tries} of {PROFILE_TRIES}: {len(k_us)} {symbol} events, "
+            f"{events.pads} pads")
+    else:
+        raise AssertionError(f"no profile of burst {b} shows {symbol}")
+    busy_us, end = 0.0, -np.inf
+    for start, stop in sorted((t, t + us) for _, t, us in events):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    wall_ms = ev[0].elapsed_time(ev[1])
+    top = {}
+    for name, _, us in events:
+        t_us, c = top.get(name, (0.0, 0))
+        top[name] = (t_us + us, c + 1)
+    prof.update(burst=b, kernel_names=sorted({n[:120] for n, _, _ in events if symbol in n}),
+                kernel_calls=len(k_us), kernel_us=float(np.sum(k_us)),
+                us_a_launch=float(np.mean(k_us)), device_ops=len(events),
+                device_us=float(sum(us for _, _, us in events)), busy_us=busy_us,
+                profiled_ms=wall_ms, busy_share=busy_us / 1e3 / wall_ms,
+                top=[dict(name=n[:80], us=u, calls=c) for n, (u, c) in
+                     sorted(top.items(), key=lambda kv: -kv[1][0])[:6]])
+    return box["out"]
+
+
+def grouting_serving(device):
+    """Phase 11: the grouting configuration (`configs/grouting.py`) at full
+    size through the port's distributed serving step at a world of one over
+    NCCL: `powerlaw_graph(4,194,304, m=8)` padded to 32-wide rows (at most
+    N_ROWS), a one-shard storage tier, the landmark index and the embed
+    router's embedding built on the card, the 2-hop hotspot stream in
+    1.5x-oversubscribed bursts through `launch/serve_graph.py`'s burst loop
+    (`serve_bursts`: one embed router, `make_admission_round`, a bounded
+    backlog), then the drain. Each shape runs with the config's 16 storage
+    shards folded into the mesh's one, the read budget a processor had over
+    them kept (`read_capacity` x 16), so B x F <= read_capacity x
+    read_retry and no read is lost. Every shape under {cuda, scatter} x
+    {dense, packed}: queries, counts and the stats [touched, missed probes,
+    reads] of every burst, and the final cache, equal across the four; each
+    query that `hhop_ball` shows untruncated counts |N_h(q)| - 1, and every
+    query, truncated ones too, what `capped_ball_size` (a numpy search
+    under the step's caps, apart from the engine) marks, less one; the cuda
+    runs launch the layout's frontier kernel and no other, the scatter runs
+    none; burst GROUTING_PROFILED of each cuda run profiled. Then the
+    serving launcher (`launch/serve.py --scheme landmark`, its defaults) on
+    the card, its landmark index bit-equal to one built on the CPU.
+    Returns (figures, the frontier launches of the cuda runs by wrapper)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import grouting
+    from repro_torch.core.embedding import EmbedConfig, build_graph_embedding
+    from repro_torch.core.landmarks import build_landmark_index
+    from repro_torch.core.serving import capped_ball_size, untruncated_size
+    from repro_torch.core.storage import build_storage
+    from repro_torch.core.workloads import hotspot_workload
+    from repro_torch.distributed.mesh import init_mesh
+    from repro_torch.graph.csr import to_padded
+    from repro_torch.graph.generators import powerlaw_graph
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.serve_graph import serve_bursts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    setup = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        setup[f"{name}_s"] = time.perf_counter() - t
+        return value
+
+    g = timed("graph", lambda: powerlaw_graph(n=grouting.N_NODES, m=GROUTING_DEGREE, seed=0))
+    adj = timed("padding", lambda: to_padded(g, max_degree=grouting.ROW_WIDTH))
+    deg = g.degree()
+    if g.n != grouting.N_NODES or adj.max_degree != grouting.ROW_WIDTH or \
+            not adj.n_rows <= grouting.N_ROWS:
+        raise AssertionError(f"grouting graph: {g.n} nodes, {adj.n_rows} rows of "
+                             f"{adj.max_degree} (config: {grouting.N_ROWS} rows)")
+    tier = timed("storage", lambda: build_storage(adj, n_shards=1, device=device))
+    n_rows = adj.n_rows
+    del adj
+    li = timed("landmarks", lambda: build_landmark_index(
+        g, n_processors=1, n_landmarks=GROUTING_LANDMARKS, device=device))
+    setup["landmarks_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    embed_cfg = EmbedConfig(dim=grouting.model_cfg().embed_dim, **GROUTING_EMBED_STEPS)
+    emb = timed("embedding", lambda: build_graph_embedding(li.dist_to_lm, li.landmarks,
+                                                           embed_cfg, device=device))
+    rel = emb.rel_error(li.dist_to_lm)
+    if not 0 <= rel < 1:
+        raise AssertionError(f"grouting embedding: rel_error {rel}")
+    del li
+    wl = timed("workload", lambda: hotspot_workload(g, **GROUTING_WORKLOAD))
+    nodes = wl.query_nodes
+    out = dict(nodes=g.n, edges=g.e, max_degree=int(deg.max()), rows=n_rows,
+               continuation_rows=n_rows - g.n, config_rows=grouting.N_ROWS,
+               over_chain=int((deg > grouting.ROW_WIDTH * grouting.model_cfg().chain_depth).sum()),
+               queries=int(nodes.size), embed_rel_error=rel, **setup, shapes=[])
+    log(f"[grouting] graph {g.n:,} nodes, {g.e:,} edges, max degree {out['max_degree']:,} "
+        f"({setup['graph_s']:.1f} s); {n_rows:,} rows of {grouting.ROW_WIDTH} "
+        f"({out['continuation_rows']:,} continuation rows, config {grouting.N_ROWS:,}; "
+        f"{setup['padding_s']:.1f} s); tier on the card {setup['storage_s']:.1f} s; "
+        f"{GROUTING_LANDMARKS} landmarks {setup['landmarks_s']:.1f} s (peak "
+        f"{setup['landmarks_peak_gb']:.2f} GB); embedding {setup['embedding_s']:.1f} s "
+        f"(rel_error {rel:.4f}); {nodes.size} queries of the 2-hop hotspot stream; "
+        f"{out['over_chain']:,} nodes over {grouting.ROW_WIDTH} x chain_depth entries")
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "grouting_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    mesh, dev = init_mesh((1, 1), ("data", "model"), device, store=dist.FileStore(store, 1),
+                          rank=0, world_size=1)
+    launches = dict.fromkeys(KERNELS_BY_LAYOUT.values(), 0)
+    quiet = lambda *_a, **_k: None  # noqa: E731
+    try:
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"grouting on {dev}: backend {dist.get_backend()}")
+        for shape in grouting.SHAPES:
+            base = grouting.model_cfg(shape)
+            S = mesh.shape["model"]
+            # the 16 shards fold into the mesh's S: a processor keeps the
+            # read budget it had over all of them
+            cfg = dataclasses.replace(base, n_storage_shards=S,
+                                      read_capacity=base.read_capacity * base.n_storage_shards // S)
+            B, F = cfg.queries_per_proc, cfg.max_frontier
+            # the frontier kernels index in 32 bits below INT_MAX (csrc/frontier.cu)
+            branch64 = max(B * g.n, B * F * cfg.row_width) >= 2 ** 31 - 1
+            if B * F > cfg.read_capacity * cfg.read_retry:
+                raise AssertionError(f"{shape}: B x F = {B * F} over the read budget")
+            runs = {}
+            for backend in GROUTING_BACKENDS:
+                for layout, kind in KERNELS_BY_LAYOUT.items():
+                    c = dataclasses.replace(cfg, expand_backend=backend, visited_layout=layout)
+                    prof = {}
+                    hook = (None if backend != "cuda" else
+                            lambda b, fn, kind=kind, prof=prof: profiled_burst(b, fn, kind, prof))
+                    LAUNCHES.clear()  # counts of this run only
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = serve_bursts(mesh, dev, c, tier, emb, nodes, bursts=GROUTING_BURSTS,
+                                       backlog=GROUTING_BACKLOG, say=quiet, on_step=hook,
+                                       record=True)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counted = {k: v for k, v in LAUNCHES.items() if v}
+                    if prof:
+                        counted[kind] -= prof["extra_launches"]
+                    what = f"grouting {shape} {backend}/{layout}"
+                    if backend == "cuda" and (counted.get(kind, 0) == 0 or
+                                              sum(counted.values()) != counted[kind]):
+                        raise AssertionError(f"{what}: launches {counted}")
+                    if backend != "cuda" and sum(counted.values()):
+                        raise AssertionError(f"{what}: launches {counted}")
+                    if backend == "cuda":
+                        # the 64-bit instantiation is the one whose index is
+                        # an unsigned long
+                        wide = any("unsigned long" in n for n in prof.get("kernel_names", ()))
+                        if not prof or wide != branch64:
+                            raise AssertionError(f"{what}: profile {prof}")
+                    runs[(backend, layout)] = (res, wall, counted, prof)
+            # the same answers from both backends and both layouts
+            first = runs[("cuda", "dense")][0]
+            for (backend, layout), (res, *_rest) in runs.items():
+                what = f"grouting {shape} {backend}/{layout} vs cuda/dense"
+                if len(res["record"]) != len(first["record"]):
+                    raise AssertionError(f"{what}: {len(res['record'])} bursts")
+                for i, (a, b) in enumerate(zip(res["record"], first["record"])):
+                    for x, y, name in zip(a, b, ("queries", "counts", "stats")):
+                        if not np.array_equal(x, y):
+                            raise AssertionError(f"{what}: burst {i} {name} differ")
+                _same_fields(res["cache"], first["cache"], f"{what}: final cache")
+                for k in ("served", "dropped", "touched", "misses", "served_per_burst"):
+                    if res[k] != first[k]:
+                        raise AssertionError(f"{what}: {k} {res[k]} != {first[k]}")
+            # the oracles: every query the balls show untruncated to
+            # |N_h(q)| - 1, and every query to the capped numpy search
+            t_oracle = time.perf_counter()
+            cap = cfg.row_width * cfg.chain_depth
+            sizes, capped, held, cut = {}, {}, 0, 0
+            for queries, counts, _ in first["record"]:
+                for q, c in zip(queries.tolist(), counts.tolist()):
+                    if q < 0:
+                        continue
+                    if q not in sizes:
+                        sizes[q] = untruncated_size(g, q, cfg.hops, F, cap)
+                        capped[q] = capped_ball_size(g, q, cfg.hops, F, cap)
+                    if c != capped[q] - 1:
+                        raise AssertionError(f"grouting {shape}: query {q} counts {c}, the "
+                                             f"capped search marks {capped[q]} - 1")
+                    if sizes[q] is None:
+                        cut += 1
+                    elif c != sizes[q] - 1:
+                        raise AssertionError(f"grouting {shape}: query {q} counts {c}, "
+                                             f"|N_{cfg.hops}| - 1 = {sizes[q] - 1}")
+                    else:
+                        held += 1
+            t_oracle = time.perf_counter() - t_oracle
+            cell = dict(shape=shape, hops=cfg.hops, queries_per_proc=B, max_frontier=F,
+                        chain_depth=cfg.chain_depth, storage_shards=(base.n_storage_shards, S),
+                        read_capacity=(base.read_capacity, cfg.read_capacity),
+                        read_retry=cfg.read_retry, reads_needed=B * F,
+                        read_budget=cfg.read_capacity * cfg.read_retry,
+                        index_branch="64-bit" if branch64 else "32-bit",
+                        bursts=len(first["record"]), served=first["served"],
+                        dropped=first["dropped"], oracle_held=held, oracle_cut=cut,
+                        capped_held=held + cut,
+                        oracle_distinct=len(sizes), oracle_s=t_oracle, runs=[])
+            for (backend, layout), (res, wall, counted, prof) in runs.items():
+                kind = KERNELS_BY_LAYOUT[layout]
+                qps = [s / t for s, t in zip(res["served_per_burst"], res["burst_s"])]
+                hit = [1 - m / max(t, 1) for m, t in zip(res["misses"], res["touched"])]
+                # the profiled burst is left out of every run's figures
+                warm = [b for b in range(len(qps)) if b >= GROUTING_WARM and b != GROUTING_PROFILED]
+                # the run's qps without its profiled burst (the profiler's
+                # own time is in that burst's wall)
+                kept = [b for b in range(len(qps)) if b != GROUTING_PROFILED]
+                run = dict(backend=backend, layout=layout, wall_s=wall,
+                           qps=(sum(res["served_per_burst"][b] for b in kept)
+                                / sum(res["burst_s"][b] for b in kept)),
+                           launches=counted.get(kind, 0),
+                           warm_qps_median=float(np.median([qps[b] for b in warm])),
+                           warm_hit=(1 - sum(res["misses"][b] for b in warm)
+                                     / max(sum(res["touched"][b] for b in warm), 1)),
+                           qps_per_burst=qps, hit_per_burst=hit, burst_s=res["burst_s"],
+                           profile=prof)
+                cell["runs"].append(run)
+                if backend == "cuda":
+                    launches[kind] += counted[kind]
+                log(f"[grouting] {shape} {backend}/{layout}: {res['served']} served, "
+                    f"{res['dropped']} dropped in {len(qps)} bursts, {wall:.2f} s ("
+                    f"{run['qps']:.1f} qps over the bursts but burst {GROUTING_PROFILED}); "
+                    f"after warm-up: median {run['warm_qps_median']:.1f} "
+                    f"qps a burst, hit {run['warm_hit']:.4f}; hit by burst "
+                    + " ".join(f"{h:.3f}" for h in hit)
+                    + (f"; {kind} launches {counted[kind]}, profile of burst {prof['burst']}: "
+                       f"{prof['kernel_calls']} launches, {prof['us_a_launch']:.2f} us a launch, "
+                       f"busy share {prof['busy_share']:.4f} of {prof['profiled_ms']:.1f} ms"
+                       if prof else ""))
+            log(f"[grouting] {shape}: B {B} x F {F} = {B * F} reads a link at most, read "
+                f"budget {cfg.read_capacity} x {cfg.read_retry} retries = "
+                f"{cell['read_budget']} (config: {base.read_capacity} a shard x "
+                f"{base.n_storage_shards} shards, folded into {S}); B x n = {B * g.n:,}, the "
+                f"kernels' {cell['index_branch']} branch; oracle: {held} queries held to "
+                f"|N_{cfg.hops}| - 1, {cut} truncated, all {held + cut} held to the capped "
+                f"search ({len(sizes)} distinct, {t_oracle:.1f} s); "
+                f"cuda = scatter, dense = packed in every burst's counts and stats and the "
+                f"final cache")
+            out["shapes"].append(cell)
+    finally:
+        dist.destroy_process_group()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del g, tier, emb, deg
+    out["launcher"] = grouting_launcher(device)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[grouting] phase 11 in {out['phase_s']:.1f} s, peak {out['peak_gb']:.2f} GB; "
+        f"frontier launches {launches}; {nvidia_smi()}")
+    return out, launches
+
+
+def grouting_launcher(device) -> dict:
+    """The serving launcher at its defaults with `--scheme landmark`, its
+    preprocessing on the card, its landmark index held bit-equal to one
+    built on the CPU from the same graph."""
+    from repro_torch.core import landmarks as landmarks_mod
+    from repro_torch.launch import serve as launcher
+
+    build, built = landmarks_mod.build_landmark_index, []
+
+    def capture(g, *a, **k):
+        li = build(g, *a, **k)
+        built.append((g, a, k, li))
+        return li
+
+    landmarks_mod.build_landmark_index = capture
+    try:
+        t = time.perf_counter()
+        (res,) = launcher.main(["--scheme", "landmark", "--device", device.type])
+        wall = time.perf_counter() - t
+    finally:
+        landmarks_mod.build_landmark_index = build
+    (g, a, k, li), = built
+    if torch.device(k["device"]).type != device.type:
+        raise AssertionError(f"the launcher built its landmark index on {k['device']}")
+    cpu = build(g, *a, **dict(k, device="cpu"))
+    for f in dataclasses.fields(li):
+        x, y = getattr(li, f.name), getattr(cpu, f.name)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"launcher landmark index, card vs CPU: {f.name} differs")
+    log(f"[grouting] launcher (python -m repro_torch.launch.serve --scheme landmark, its "
+        f"defaults, {wall:.1f} s): {res.row().strip()} -- qps and resp derived from the cost "
+        f"model calibrated to the paper's RAMCloud cluster, not times of the card; landmark "
+        f"index on the card bit-equal to the CPU's")
+    return dict(wall_s=wall, row=res.row(), derived_qps=res.throughput_qps,
+                derived_mean_response_ms=res.mean_response_ms, hit_rate=res.hit_rate,
+                stolen=res.stolen, landmark_index_card_eq_cpu=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4022,6 +4387,10 @@ def main() -> int:
     phase_done("GNN and DIN card vs CPU")
     zoo = zoo_training(device)
     phase_done("zoo training")
+    grouting, grouting_launches = grouting_serving(device)
+    for k, v in grouting_launches.items():
+        kernels[k]["launches"] += v
+    phase_done("grouting")
 
     log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))
     log(json.dumps({"routing": routing}))
@@ -4031,6 +4400,7 @@ def main() -> int:
     log(json.dumps({"flash_bwd_shapes": bwd_shapes, "flash_bwd_drop_check": bwd_drop,
                     "train": train}))
     log(json.dumps({"zoo": zoo}))
+    log(json.dumps({"grouting": grouting}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@
     `dbrx_132b`: 16 experts, top-4);
   - the GNN zoo (`pna`, `egnn`, `graphcast`, `equiformer_v2`; their
     `model_cfg(shape)` reads `base.GNN_SHAPES`) and DIN (`din`, with its
-    `SHAPES`).
+    `SHAPES`);
+  - the paper's own system (`grouting`: `GServeConfig`s of the distributed
+    serving step at 4,194,304 nodes, with its `SHAPES`).
 
 The reference's `ArchDef` cells and dry-run builders are JAX mesh
 machinery and are not ported.

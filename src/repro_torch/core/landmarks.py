@@ -29,6 +29,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRGraph, csr_to_edge_index
 
 UNREACHED = np.int32(0x3FFFFFFF)  # "infinity" that survives +1 without overflow
+# messages a BFS level holds at most: (e, L) int32, 8 GB
+BFS_BLOCK_ENTRIES = 1 << 31
 
 
 def bfs_distances(
@@ -40,8 +42,15 @@ def bfs_distances(
     src/dst: (e,) int32 edge list (bi-directed for the paper's semantics).
     sources: (L,) int32 source nodes. Returns dist (n, L) int32, UNREACHED
     where not reached within max_iters levels. One host sync per level.
+    A level's messages are (e, L): the sources go through in blocks of at
+    most BFS_BLOCK_ENTRIES messages (each source's BFS is its own, so the
+    blocks give the same table).
     """
     L = sources.shape[0]
+    block = max(1, BFS_BLOCK_ENTRIES // max(int(src.shape[0]), 1))
+    if L > block:
+        return torch.cat([bfs_distances(src, dst, sources[i:i + block], n, max_iters)
+                          for i in range(0, L, block)], dim=1)
     dev = src.device
     dist = torch.full((n, L), int(UNREACHED), dtype=torch.int32, device=dev)
     dist[sources.long(), torch.arange(L, device=dev)] = 0

@@ -3,6 +3,7 @@
 
   - r-hop hotspot:    hotspot centers uniform at random; query nodes within
                       r hops of each center, consecutive per hotspot.
+  - concentrated:     r = 0: each center queried `reps` times in a row.
   - uniform:          uniform query nodes.
   - drifting hotspot: hotspot centers random-walk between phases -- the
                       locality a smart router must track online (EMA drift).
@@ -87,6 +88,10 @@ def hotspot_workload(
         targets=targets,
         hotspot_id=np.concatenate(hs),
     )
+
+
+def concentrated_workload(g: CSRGraph, n_hotspots: int = 100, reps: int = 10, seed: int = 0):
+    return hotspot_workload(g, r=0, n_hotspots=n_hotspots, queries_per_hotspot=reps, seed=seed)
 
 
 def drifting_hotspot_workload(

@@ -119,30 +119,31 @@ def to_padded(g: CSRGraph, max_degree: Optional[int] = None) -> PaddedAdjacency:
     max_degree = max(int(max_degree), 2)  # need >= 2 for continuation chaining
 
     # Every row holds up to max_degree entries; the chain pointer is kept
-    # out-of-band in cont[], so chained rows lose no payload capacity.
-    n_chain = np.where(deg <= max_degree, 0, np.ceil((deg - max_degree) / max_degree).astype(np.int64))
+    # out-of-band in cont[], so chained rows lose no payload capacity. Node
+    # u's k-th row (k >= 1) is continuation row first[u] + k - 1: the
+    # continuation rows follow the n base rows in node order.
+    W = max_degree
+    n_chunks = np.maximum(1, -(-deg // W))  # rows of each node
+    n_chain = n_chunks - 1
     total_rows = g.n + int(n_chain.sum())
+    first = g.n + np.cumsum(n_chain) - n_chain
 
-    rows = np.full((total_rows, max_degree), -1, dtype=np.int32)
+    def row_of(u, k):
+        return np.where(k == 0, u, first[u] + k - 1)
+
+    rows = np.full((total_rows, W), -1, dtype=np.int32)
     degree = np.zeros((total_rows,), dtype=np.int32)
     cont = np.full((total_rows,), -1, dtype=np.int32)
-
-    next_free = g.n
-    for u in range(g.n):
-        nb = g.indices[g.indptr[u] : g.indptr[u + 1]]
-        r = u
-        off = 0
-        while True:
-            take = min(max_degree, len(nb) - off)
-            if take > 0:
-                rows[r, :take] = nb[off : off + take]
-            degree[r] = take
-            off += take
-            if off >= len(nb):
-                break
-            cont[r] = next_free
-            r = next_free
-            next_free += 1
+    # every edge: its node's row, by its position in the node's list
+    u = np.repeat(np.arange(g.n, dtype=np.int64), deg)
+    pos = np.arange(u.size, dtype=np.int64) - g.indptr[:-1][u]
+    rows[row_of(u, pos // W), pos % W] = g.indices
+    # every row: its entry count and the row it continues into
+    u = np.repeat(np.arange(g.n, dtype=np.int64), n_chunks)
+    k = np.arange(u.size, dtype=np.int64) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks)
+    r = row_of(u, k)
+    degree[r] = np.minimum(W, deg[u] - k * W)
+    cont[r] = np.where(k < n_chunks[u] - 1, first[u] + k, -1)
     return PaddedAdjacency(n=g.n, rows=rows, degree=degree, cont=cont)
 
 

@@ -38,27 +38,29 @@ def powerlaw_graph(n: int, m: int = 8, seed: int = 0, bidirect: bool = True) -> 
         for v in range(u):
             src[k], dst[k] = u, v
             k += 1
-    # endpoint pool for degree-biased sampling
-    pool = np.concatenate([src[:k], dst[:k]])
-    pool_list = [pool]
+    # endpoint pool for degree-biased sampling: the clique's sources and
+    # targets, then each batch's new nodes and their targets, in that order
+    # in one buffer; a batch draws from the part filled before it
+    pool = np.empty(2 * k + 2 * max(n - m - 1, 0) * m, dtype=np.int64)
+    pool[:k], pool[k : 2 * k] = src[:k], dst[:k]
+    filled = 2 * k
     batch = max(1024, m * 64)
     u = m + 1
     while u < n:
         ub = min(n, u + batch)
         cnt = (ub - u) * m
-        flat_pool = np.concatenate(pool_list) if len(pool_list) > 1 else pool_list[0]
-        pool_list = [flat_pool]
         # sample degree-biased targets for the whole batch at once; clip to
         # nodes that exist at the *start* of the batch (slight approximation,
         # preserves the power law)
-        targets = flat_pool[rng.integers(0, flat_pool.size, size=cnt)]
+        targets = pool[rng.integers(0, filled, size=cnt)]
         news = np.repeat(np.arange(u, ub, dtype=np.int64), m)
         targets = np.where(targets >= news, (targets % np.maximum(news, 1)), targets)
         src[k : k + cnt] = news
         dst[k : k + cnt] = targets
         k += cnt
-        pool_list.append(news)
-        pool_list.append(targets)
+        pool[filled : filled + cnt] = news
+        pool[filled + cnt : filled + 2 * cnt] = targets
+        filled += 2 * cnt
         u = ub
     g = build_csr(n, src[:k], dst[:k], dedup=True)
     return make_bidirected(g) if bidirect else g

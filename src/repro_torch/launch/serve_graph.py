@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -107,71 +108,112 @@ def serve(args, mesh, dev) -> dict:
     say(f"expansion backend: {args.backend}; visited layout: {args.visited_layout} "
         f"({visited_nbytes(args.visited_layout, qpp, g.n)} bytes/round of per-query "
         f"visited state)")
+    emb = nodes = None
+    if lead:  # the router's embedding, and the request stream
+        li = build_landmark_index(g, n_processors=P, n_landmarks=24, device=dev)
+        emb = build_graph_embedding(li.dist_to_lm, li.landmarks, EMBED, device=dev)
+        nodes = hotspot_workload(g, r=1, n_hotspots=6, queries_per_hotspot=arrivals,
+                                 seed=1).query_nodes
+    return serve_bursts(mesh, dev, cfg, tier, emb, nodes, bursts=args.bursts,
+                        backlog=args.backlog, say=say)
+
+
+def serve_bursts(mesh, dev, cfg: GServeConfig, tier, emb, nodes, *, bursts: int,
+                 backlog: int, say=print, on_step=None, record: bool = False) -> dict:
+    """The burst loop: each burst brings 1.5x the processors' slots of
+    `nodes` (in order, wrapping around), admitted by one embed router on
+    rank 0 on the coordinates of `emb`, its buffer broadcast; after
+    `bursts` bursts the backlog drains. `emb` and `nodes` are read on rank 0
+    only; every rank serves its row of `tier` (a `StorageTier` of
+    `cfg.n_storage_shards` shards) through the distributed step.
+
+    Returns rank 0's totals (the other ranks' are empty): arrivals, served,
+    dropped, the backlog left, and per burst the touched rows and missed
+    probes of the whole mesh, the served queries and the wall seconds (from
+    admission to the stats read back). With `record`, also rank 0's own
+    (queries, counts, stats) of each burst as numpy ("record") and its
+    final cache ("cache"). `on_step(b, fn)`, when given, runs burst b's
+    step `fn` (a profile, say)."""
+    lead = mesh.rank == 0
+    P, qpp = n_processors(mesh), cfg.queries_per_proc
+    arrivals = P * qpp + P * qpp // 2  # 1.5x oversubscription per burst
     step = make_distributed_serve_step(mesh, cfg)
 
-    # one router, on rank 0: it trains the embedding and sends its
-    # coordinates to every rank (the EMA update reads them)
-    coords = torch.empty((g.n, EMBED.dim), dtype=torch.float32, device=dev)
+    # one router, on rank 0: its embedding's coordinates go to every rank
+    # (the EMA update reads them)
+    coords = torch.empty((cfg.n_nodes, cfg.embed_dim), dtype=torch.float32, device=dev)
     if lead:
-        li = build_landmark_index(g, n_processors=P, n_landmarks=24, device=dev)
-        ge = build_graph_embedding(li.dist_to_lm, li.landmarks, EMBED, device=dev)
-        coords.copy_(torch.from_numpy(ge.coords))
-        router = Router(P, RouterConfig(scheme="embed"), embedding=ge, device=dev)
+        coords.copy_(torch.from_numpy(emb.coords))
+        router = Router(P, RouterConfig(scheme="embed"), embedding=emb, device=dev)
         rstate = router.init_state()
         admission, init_backlog = make_admission_round(
-            router, mesh, cfg, backlog_capacity=args.backlog)
-        backlog = init_backlog()
-        wl = hotspot_workload(g, r=1, n_hotspots=6, queries_per_hotspot=arrivals, seed=1)
+            router, mesh, cfg, backlog_capacity=backlog)
+        ring = init_backlog()
     dist.broadcast(coords, src=0)
 
     inputs = dict(make_serving_storage(tier, mesh.axis_index("model"), dev), coords=coords,
-                  ema=torch.zeros((P, EMBED.dim), dtype=torch.float32, device=dev),
+                  ema=torch.zeros((P, cfg.embed_dim), dtype=torch.float32, device=dev),
                   cache=make_processor_caches(mesh, cfg, dev))
     say(f"{'burst':>5s} {'arrive':>7s} {'served':>7s} {'backlog':>8s} {'dropped':>8s} "
         f"{'touched':>8s} {'misses':>8s} {'hit%':>6s}")
-    out = dict(arrivals=0, served=0, dropped=0, backlog=0, touched=[], misses=[])
+    out = dict(arrivals=0, served=0, dropped=0, backlog=0, touched=[], misses=[],
+               served_per_burst=[], burst_s=[])
+    if record:
+        out["record"] = []
     no_fresh = np.full(arrivals, -1, np.int32)
     # what rank 0 sends each burst: [stop flag, the (P, qpp) buffer]
     msg = torch.empty(1 + P * qpp, dtype=torch.int32, device=dev)
     b = 0
     while True:
+        t0 = time.perf_counter()
         if lead:
-            draining = b >= args.bursts
-            stop = draining and int(backlog.depth()) == 0
+            draining = b >= bursts
+            stop = draining and int(ring.depth()) == 0
             if not stop:
                 if draining:
                     q = no_fresh  # arrivals stopped: drain the backlog
                 else:
-                    q = wl.query_nodes[(b * arrivals) % wl.query_nodes.size:][:arrivals]
+                    q = nodes[(b * arrivals) % nodes.size:][:arrivals]
                     if q.size < arrivals:
                         q = np.resize(q, arrivals)
                 qids = torch.arange(b * arrivals, (b + 1) * arrivals, dtype=torch.int32,
                                     device=dev)
-                qbuf, adm = admission(rstate, backlog, torch.from_numpy(q).to(dev), qids)
-                rstate, backlog = adm.rstate, adm.backlog
+                qbuf, adm = admission(rstate, ring, torch.from_numpy(q).to(dev), qids)
+                rstate, ring = adm.rstate, adm.backlog
                 msg[1:] = qbuf.reshape(-1)
             msg[0] = int(stop)
         dist.broadcast(msg, src=0)
         if int(msg[0]):
             break
-        counts, ema, cache, stats = step(dict(inputs, queries=msg[1:].view(P, qpp)[mesh.rank]))
+        ins = dict(inputs, queries=msg[1:].view(P, qpp)[mesh.rank])
+        counts, ema, cache, stats = (step(ins) if on_step is None
+                                     else on_step(b, lambda: step(ins)))
         inputs["cache"], inputs["ema"] = cache, ema
         touched, missed, _reads = stats.tolist()  # the whole mesh's, this burst
+        wall = time.perf_counter() - t0
         if lead:
+            if record:
+                # copies: on the CPU .numpy() would share the reused message buffer
+                out["record"].append(tuple(x.cpu().numpy().copy()
+                                           for x in (ins["queries"], counts, stats)))
             served, n_dropped = int(adm.placed.sum()), int(adm.n_dropped)
             out["arrivals"] += 0 if draining else arrivals
             out["served"] += served
             out["dropped"] += n_dropped
             out["touched"].append(int(touched))
             out["misses"].append(int(missed))
+            out["served_per_burst"].append(served)
+            out["burst_s"].append(wall)
             hit = 100 * (1 - missed / max(touched, 1))
             say(f"{b:5d} {0 if draining else arrivals:7d} {served:7d} {int(adm.depth):8d} "
                 f"{n_dropped:8d} {int(touched):8d} {int(missed):8d} {hit:6.1f}")
         b += 1
     if lead:
-        out["backlog"] = int(backlog.depth())
+        if record:
+            out["cache"] = inputs["cache"]
+        out["backlog"] = int(ring.depth())
         say(f"\nserved {out['served']}, dropped {out['dropped']} (drop-oldest admission, "
-            f"backlog {args.backlog})")
+            f"backlog {backlog})")
         return out
     return {}
 
