@@ -109,7 +109,16 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      counting what a numpy search under the step's caps marks, one burst
      of each cuda run profiled; then the serving launcher
      (`launch/serve.py --scheme landmark`), its landmark index on the card
-     bit-equal to the CPU's, its row derived from the cost model.
+     bit-equal to the CPU's, its row derived from the cost model;
+ 12. plans and runs the examples: the reference's three examples at its
+     defaults on the card (the quickstart's rows, labelled cost-model
+     where they are; DIN trained 80 steps, then served with synced walls;
+     GraphCast's weather mode, its MSE falling); the roofline of the steps
+     phases 4, 9 and 10 timed (Qwen3-4B's prefill and training step,
+     GraphCast at minibatch_lg), counted on meta tensors at the same
+     shapes, with the bound, the bottleneck and the measured model-flops
+     share; `launch/dryrun.py` for one cell of each family at the 16x16
+     mesh, each in a subprocess; and `--list`'s cells and skips.
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases; for
@@ -125,6 +134,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import inspect
+import io
 import json
 import os
 import subprocess
@@ -4290,6 +4302,229 @@ def grouting_launcher(device) -> dict:
                 stolen=res.stolen, landmark_index_card_eq_cpu=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: planning and examples
+# ---------------------------------------------------------------------------
+
+# one cell of each family through `python -m repro_torch.launch.dryrun`,
+# each in a subprocess of its own (started together, on the host: the dry
+# run counts on meta tensors and touches no device)
+PLAN_CELLS = (("qwen3-4b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+              ("pna", "full_graph_sm"), ("din", "train_batch"), ("grouting", "serve_1hop"))
+PLAN_TIMEOUT_S = 240  # a dry-run subprocess, import and count included
+PLAN_OUT = "build/dryrun"  # the dry run's JSON records (git-ignored)
+
+
+def quickstart_graph_digest() -> str:
+    """numpy's version and a digest of the quickstart's graph at its
+    defaults. The graph's intra-community targets are `Generator.zipf`
+    draws, a stream numpy does not hold fixed across versions: hosts with
+    other numpy versions build other graphs (the reference's and the
+    port's alike), and so print other rows."""
+    from repro_torch.examples import quickstart
+    from repro_torch.graph.generators import community_graph
+
+    d = {k: p.default for k, p in inspect.signature(quickstart.run).parameters.items()}
+    g = community_graph(n=d["n"], community_size=d["community_size"], intra_degree=6,
+                        inter_degree=1.0, seed=0)
+    return (f"numpy {np.__version__}: graph of {g.e} edges, sha1 of its CSR "
+            f"{hashlib.sha1(g.indptr.tobytes() + g.indices.tobytes()).hexdigest()[:12]}")
+
+
+def examples_on_card(device) -> dict:
+    """(a) The reference's three examples at its defaults, on the card:
+    the quickstart (landmarks and embedding on the card, the simulator on
+    the host: its qps and milliseconds are cost-model derivations), DIN
+    (80 training steps, then serve_p99, serve_bulk and retrieval; p50 and
+    qps are synced walls on the card) and GraphCast's weather mode (60
+    steps; the MSE must fall)."""
+    from repro_torch.core.costmodel import DERIVED
+    from repro_torch.examples import din_serving, quickstart, weather_graphcast
+
+    out = {}
+    t = time.perf_counter()
+    rows = quickstart.run(device=device, out=lambda s: log(f"[quickstart] {s}"))
+    for r in rows:
+        if not (np.isfinite(r.throughput_qps) and np.isfinite(r.mean_response_ms)
+                and 0.0 <= r.hit_rate <= 1.0):
+            raise AssertionError(f"quickstart row {r}")
+    wall = time.perf_counter() - t
+    # the same run with the preprocessing on the host's CPU: which rows the
+    # card's landmarks and embedding move (printed, not held: the embedding
+    # is float arithmetic in another order)
+    fields = lambda r: (r.throughput_qps, r.mean_response_ms, r.hit_rate, r.stolen)
+    cpu_rows = quickstart.run(device="cpu", out=lambda s: None)
+    same = {r.scheme: fields(r) == fields(c) for r, c in zip(rows, cpu_rows)}
+    log(f"[quickstart] rows equal to a run with the preprocessing on the CPU: {same}")
+    graph = quickstart_graph_digest()
+    log(f"[quickstart] {graph}")
+    out["quickstart"] = dict(
+        clock=f"qps and resp_ms {DERIVED}; hit and stolen simulated", wall_s=wall, graph=graph,
+        rows=[dict(scheme=r.scheme, qps=r.throughput_qps, resp_ms=r.mean_response_ms,
+                   hit=r.hit_rate, stolen=r.stolen) for r in rows], equal_to_cpu=same)
+
+    t = time.perf_counter()
+    d = din_serving.run(device=device, out=lambda s: log(f"[din_serving] {s}"))
+    shapes = {name: d[name] for name, _, _ in din_serving.SERVE}
+    if not all(np.isfinite(d["losses"])) or not all(
+            np.isfinite(v["scores"]).all() and 0.0 <= v["auc"] <= 1.0 for v in shapes.values()) \
+            or not np.isfinite(d["retrieval"]["scores"]).all():
+        raise AssertionError("din_serving: a loss, score or AUC out of range")
+    out["din_serving"] = dict(
+        clock="synced walls on the card (host batch build and copy included)",
+        wall_s=time.perf_counter() - t, final_bce=d["losses"][-1],
+        shapes={k: dict(batch=v["batch"], p50_ms=v["p50_ms"], qps=v["qps"], auc=v["auc"])
+                for k, v in shapes.items()},
+        retrieval=dict(candidates=d["retrieval"]["candidates"],
+                       ms=d["retrieval"]["wall_s"] * 1e3, top5=d["retrieval"]["top5"]))
+
+    t = time.perf_counter()
+    w = weather_graphcast.run(device=device, out=lambda s: log(f"[weather_graphcast] {s}"))
+    if not all(np.isfinite(w["losses"])) or not w["losses"][-1] < w["losses"][0]:
+        raise AssertionError(f"weather_graphcast: losses {w['losses']}")
+    out["weather_graphcast"] = dict(wall_s=time.perf_counter() - t, mse_first=w["losses"][0],
+                                    mse_last=w["losses"][-1])
+    return out
+
+
+def roofline_rows(lm: dict, train: dict, zoo: dict) -> list:
+    """(b) The roofline of the steps phases 4, 9 and 10 timed, counted on
+    meta tensors at the same shapes through the dry run's own count and
+    report (`launch/dryrun.py` `count_cell`, `report_for`), beside the
+    medians measured there: Qwen3-4B's prefill (LM_BATCH x LM_PROMPT), its
+    training step (the grad_accum microbatches of TRAIN_MICRO x TRAIN_SEQ
+    counted as one batch, as the dry run counts it: the same flops) and
+    GraphCast's at minibatch_lg (float32, TF32 off). The model-flops share
+    is model_flops / (t x peak): the benchmark's `mfu`."""
+    from repro_torch.analysis.roofline import model_flops_share
+    from repro_torch.configs import base, graphcast, qwen3_4b
+    from repro_torch.launch.dryrun import count_cell, report_for
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rows = []
+    one = make_host_mesh()  # one card: nothing split
+
+    def row(name, spec, seconds):
+        t = time.perf_counter()
+        counted = count_cell(spec)
+        count = counted[2]
+        _, rep = report_for(spec, one, counted, name, "")
+        r = rep.row()
+        model_flops = spec.meta["model_flops"]
+        share = model_flops_share(model_flops, seconds, rep.peak)
+        rows.append(dict(step=name, model_flops=model_flops, counted_flops=count.flops,
+                         major_bytes=count.major_bytes, score_bytes=count.score_bytes,
+                         eager_bytes=count.bytes, state_rw_bytes=rep.peak_state_bytes,
+                         peak=rep.peak, bound_s=max(rep.t_compute, rep.t_memory),
+                         t_compute_s=rep.t_compute, t_memory_s=rep.t_memory,
+                         bottleneck=r["bottleneck"], measured_s=seconds,
+                         model_flops_share=share,
+                         counted_flops_share=count.flops / (seconds * rep.peak_flops),
+                         count_s=time.perf_counter() - t))
+        log(f"[roofline] {name}: model flops {model_flops:.4e}, counted {count.flops:.4e} "
+            f"({count.ops} ops on meta in {rows[-1]['count_s']:.1f} s); major bytes "
+            f"{count.major_bytes:.4e} (attention scores {count.score_bytes:.4e} left out), "
+            f"state read and written {rep.peak_state_bytes:.4e}, eager {count.bytes:.4e}; "
+            f"at the {rep.peak} peak: compute {rep.t_compute:.4f} s, "
+            f"memory {rep.t_memory:.4f} s, bound {rows[-1]['bound_s']:.4f} s "
+            f"({r['bottleneck']}); measured {seconds:.4f} s; model-flops share {share:.4f}, "
+            f"counted-flops share {rows[-1]['counted_flops_share']:.4f}")
+
+    def at(spec, batch, seq):
+        """The LM cell's spec with its token arguments (the last) at batch x seq."""
+        toks = lambda: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+        last = spec.args[-1]
+        new = {k: toks() for k in last} if isinstance(last, dict) else toks()
+        kind = spec.meta["kind"]
+        meta = dict(spec.meta, seq=seq, tokens=batch * seq,
+                    model_flops=base.lm_model_flops(cfg_of[kind], batch * seq, kind))
+        return dataclasses.replace(spec, args=spec.args[:-1] + (new,),
+                                   state=spec.state[:-1] + (new,), meta=meta)
+
+    cfg = qwen3_4b.model_cfg()
+    tcfg = dataclasses.replace(cfg, n_layers=train["layers"])
+    cfg_of = {"prefill": cfg, "train": tcfg}
+    B, S = lm["batch"], lm["prompt"]
+    spec = base.build_lm_dryrun(cfg, "prefill_32k", one, base.Cell("prefill_32k", "prefill"))
+    row(f"qwen3-4b prefill {B} x {S}", at(spec, B, S),
+        float(np.median([lm["prefill_s"], lm["prefill2_s"]])))
+
+    tokens, seq = train["tokens_per_step"], train["seq"]
+    spec = base.build_lm_dryrun(tcfg, "train_4k", one, base.Cell("train_4k", "train"))
+    row(f"qwen3-4b train {train['grad_accum']} x {train['micro_batch']} x {seq}",
+        at(spec, tokens // seq, seq), train["step_ms_median_after_first"] / 1e3)
+    del spec
+
+    gc = next(r for r in zoo["gnn"] if r.get("arch") == "graphcast"
+              and r.get("shape") == "minibatch_lg")
+    row("graphcast train minibatch_lg", graphcast.ARCH.build_dryrun("minibatch_lg", one),
+        gc["step_ms_median_after_first"] / 1e3)
+    log("[roofline] GraphCast's model flops are the reference's per-node proxy for GNNs "
+        "(6 x params x (E + N) / N): its model-flops share says nothing of the card, its "
+        "counted-flops share does")
+    return rows
+
+
+def planning_and_examples(device, lm: dict, train: dict, zoo: dict) -> dict:
+    """Phase 12: (a) the examples, timed with nothing else on the host;
+    then (c)'s dry-run subprocesses started, (b) the roofline rows and (d)
+    `--list` counted beside them, and (c) read."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out = dict(examples=examples_on_card(device))
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_plan = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
+         "--mesh", "single", "--out", str(root / PLAN_OUT)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a, s in PLAN_CELLS]
+    try:
+        t = time.perf_counter()
+        with no_tf32():
+            out["roofline"] = roofline_rows(lm, train, zoo)
+        out["roofline_s"] = time.perf_counter() - t
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if dryrun.main(["--list"]) != 0:
+                raise AssertionError("dryrun --list failed")
+        listed = buf.getvalue().splitlines()
+        skips = [ln for ln in listed if "SKIP: " in ln]
+        log(f"[plan] --list: {len(listed)} cells, {len(skips)} skipped: " +
+            "; ".join(" ".join(ln.split()[:2]) for ln in skips))
+        if len(listed) != 43 or len(skips) != 4:
+            raise AssertionError(f"dryrun --list: {len(listed)} cells, {len(skips)} skips")
+        out["list"] = dict(cells=len(listed), skips=[" ".join(ln.split()[:2]) for ln in skips])
+
+        results = []
+        for (arch, shape), p in zip(PLAN_CELLS, procs):
+            stdout, stderr = p.communicate(timeout=max(
+                PLAN_TIMEOUT_S - (time.perf_counter() - t_plan), 1))
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT")]
+            if p.returncode or len(lines) != 1:
+                raise AssertionError(f"dryrun {arch} {shape}: rc {p.returncode}\n"
+                                     f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            # grouting's serving step reads the device: state bytes only
+            counted = "counted_flops=None" not in lines[0]
+            if counted != (arch != "grouting"):
+                raise AssertionError(f"dryrun {arch} {shape}: {lines[0]}")
+            log(f"[plan] {lines[0]}")
+            results.append(lines[0])
+        out["dryrun"] = results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[plan] phase 12 in {out['phase_s']:.1f} s (roofline counts {out['roofline_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4391,6 +4626,8 @@ def main() -> int:
     for k, v in grouting_launches.items():
         kernels[k]["launches"] += v
     phase_done("grouting")
+    planning = planning_and_examples(device, lm, train, zoo)
+    phase_done("planning and examples")
 
     log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))
     log(json.dumps({"routing": routing}))
@@ -4401,6 +4638,7 @@ def main() -> int:
                     "train": train}))
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"grouting": grouting}))
+    log(json.dumps({"planning": planning}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

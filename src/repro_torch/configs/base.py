@@ -1,12 +1,262 @@
-"""The zoo's graph shapes (the reference's `configs/base.py`
-`GNN_SHAPES`). The rest of that file (cells, logical sharding rules,
-dry-run builders) is JAX mesh machinery and is not ported.
+"""Config registry substrate (the reference's `configs/base.py`): cells,
+dry-run specs, the logical sharding rules and the per-family builders.
 
-All four are synthetic (`graph/generators.py`, `data/graphs.py`):
-full_graph_sm has Cora's shape, minibatch_lg Reddit's with GraphSAGE's
-fanout, ogb_products ogbn-products' (distributed in the reference), and
-molecule is a batch of 128 small molecular graphs.
+Every assigned architecture is a module in this package exposing ``ARCH``
+(an `ArchDef`). A cell = (architecture x input shape); ``build_dryrun``
+returns what `launch/dryrun.py` needs to plan that cell on a mesh: the
+port's step function, its arguments as `meta` tensors (shapes and dtypes,
+no memory), the sharding spec trees (`distributed.mesh_utils`), the rules
+and the reference's `meta` keys (params, tokens, seq, n_groups, kind,
+model_flops). The dry run counts the step's flops and bytes by running it
+eagerly on the meta tensors at full depth (`analysis/roofline.py`).
+
+The graph shapes (`GNN_SHAPES`) are all synthetic (`graph/generators.py`,
+`data/graphs.py`): full_graph_sm has Cora's shape, minibatch_lg Reddit's
+with GraphSAGE's fanout, ogb_products ogbn-products' (distributed in the
+reference), and molecule is a batch of 128 small molecular graphs.
 """
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed.mesh_utils import DEFAULT_RULES, resolve_pspec, set_mesh_rules
+from repro_torch.models.param import abstract_params, param_count, param_pspecs
+
+# why a cell's step is planned but not counted: the sharded execution it
+# needs (graph partitions over the mesh, collectives) is not ported
+FOUR_CARD_ITEM = ("needs models/gnn/distributed.py, the sharded full-graph step "
+                  "(ROADMAP Queue 1 item 3, four cards)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    shape: str  # e.g. "train_4k"
+    kind: str  # train | prefill | decode | serve | retrieval
+    skip: Optional[str] = None  # reason this cell does not run for the arch
+    rules: Optional[Dict[str, Any]] = None  # logical-rule overrides
+    meta: Optional[Dict[str, Any]] = None
+
+
+@dataclasses.dataclass
+class DryRunSpec:
+    """What the dry run counts: `fn(*args)` on meta tensors.
+
+    `in_specs` are the arguments' sharding specs, tree by tree, over
+    `state` (default: `args`): the same arguments in the layout the specs
+    describe (an LM's parameters stacked per pattern index, as the
+    reference's, where `fn` takes them per layer). `fn` is None where the
+    step cannot run on meta tensors; `meta["not_counted"]` then says why."""
+
+    fn: Optional[Callable]
+    args: tuple
+    in_specs: tuple
+    rules: Dict[str, Any]
+    meta: Dict[str, Any]
+    state: Optional[tuple] = None
+    donate: tuple = ()  # argnums updated in place (decode: the KV cache)
+
+
+@dataclasses.dataclass
+class ArchDef:
+    name: str
+    family: str  # lm | gnn | recsys | grouting
+    cells: Tuple[Cell, ...]
+    model_cfg: Callable[[], Any]  # full-size config
+    smoke_cfg: Callable[[], Any]  # reduced config for CPU smoke tests
+    build_dryrun: Callable[..., DryRunSpec]  # (shape_name, mesh)
+
+    def cell(self, shape: str) -> Cell:
+        for c in self.cells:
+            if c.shape == shape:
+                return c
+        raise KeyError(f"{self.name}: unknown shape {shape}")
+
+
+def merged_rules(overrides: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    r = dict(DEFAULT_RULES)
+    if overrides:
+        r.update(overrides)
+    return r
+
+
+def meta_tensor(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_step_fn(loss_fn: Callable, opt_cfg, schedule: bool = False):
+    """The reference dry run's train step over the port's pieces: the
+    gradients of one microbatch (`accum_value_and_grad`), AdamW in place,
+    the step advanced; with `schedule` the learning rate is
+    `warmup_cosine(step, lr, 100, 10_000)`.
+    No host read: meta tensors have no values."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.train_step import TrainState, accum_value_and_grad
+
+    vg = accum_value_and_grad(loss_fn, 1)
+
+    def train_step(st, b):
+        (loss, metrics), grads = vg(st.params, b)
+        lr = warmup_cosine(st.step, opt_cfg.lr, 100, 10_000) if schedule else None
+        _, _, om = adamw_update(grads, st.opt_state, st.params, opt_cfg, lr=lr)
+        return TrainState(st.params, st.opt_state, st.step + 1), dict(metrics, loss=loss, **om)
+
+    return train_step
+
+
+def abstract_train_state(ap, pspecs, per_layer: Optional[Callable] = None):
+    """(the state `train_step_fn` takes, the same state as `ap`'s layout,
+    its specs): the parameters as trainable meta tensors (`per_layer` maps
+    `ap` to the step's layout), AdamW's m and v, the step."""
+    from repro_torch.optim.adamw import abstract_opt_state, adamw_init, opt_state_pspecs
+    from repro_torch.train.train_step import TrainState, trainable
+
+    params = trainable(per_layer(ap) if per_layer else ap)
+    step = meta_tensor(())
+    state = TrainState(params, adamw_init(params), step)
+    layout = TrainState(ap, abstract_opt_state(ap), step)
+    return state, layout, TrainState(pspecs, opt_state_pspecs(pspecs), ())
+
+
+# ---------------------------------------------------------------------------
+# LM family builder
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_RULES = {
+    "batch": ("pod", "data"),
+    "embed": "data",  # FSDP: parameters/optimizer sharded over data
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+}
+
+LM_DECODE_RULES = dict(
+    LM_TRAIN_RULES,
+    **{"kv_seq": "model", "kv_heads": None},  # sequence-parallel KV cache
+)
+
+LM_LONG_DECODE_RULES = dict(
+    LM_TRAIN_RULES,
+    **{"batch": None, "kv_seq": ("data", "model"), "kv_heads": None},
+)
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256, rules=LM_TRAIN_RULES),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32, rules=LM_TRAIN_RULES),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128, rules=LM_DECODE_RULES),
+    "long_500k": dict(kind="decode", seq=524288, batch=1, rules=LM_LONG_DECODE_RULES),
+}
+
+
+def lm_cells(long_ok: bool, long_skip_reason: str = "") -> Tuple[Cell, ...]:
+    cells = []
+    for shape, d in LM_SHAPES.items():
+        skip = None
+        if shape == "long_500k" and not long_ok:
+            skip = long_skip_reason or (
+                "pure full-attention arch: no sub-quadratic path for 500k decode "
+                "(DESIGN.md §Arch-applicability)"
+            )
+        cells.append(Cell(shape=shape, kind=d["kind"], skip=skip, rules=d["rules"]))
+    return tuple(cells)
+
+
+def lm_model_flops(cfg, tokens: int, kind: str) -> float:
+    """MODEL_FLOPS = 6*N*D (train) or 2*N*D (fwd); N = active params."""
+    from repro_torch.models.transformer import lm_param_specs
+
+    n_total = param_count(lm_param_specs(cfg))
+    if cfg.moe:
+        # subtract non-active expert params: active = top_k/n_experts of routed
+        routed = 3 * cfg.n_experts_padded * cfg.d_model * cfg.d_ff_expert * cfg.n_layers
+        n_active = n_total - routed + routed * cfg.top_k / cfg.n_experts_padded
+    else:
+        n_active = n_total
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n_active * tokens
+
+
+def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
+    """The cell's step on meta tensors. A training step takes its batch as
+    one microbatch, as the reference's flops mode does: the flops are the
+    same, the Python dispatch a quarter or less, and the bytes leave out
+    the weights' re-reads and the float32 accumulator of the microbatch
+    loop. The loss head keeps its chunks (each recomputed in the backward)
+    and attention its q chunks above 2048 x 2048 (`kernels.ops.attention`),
+    as the step runs them."""
+    from repro_torch.models import transformer as T
+
+    n_groups_full = cfg.n_layers // cfg.group_size
+    cfg = dataclasses.replace(cfg, grad_accum=1)
+    d = LM_SHAPES[shape]
+    rules = merged_rules(cell.rules)
+    seq, batch = d["seq"], d["batch"]
+    with set_mesh_rules(mesh, rules) as lr:
+        specs = T.lm_param_specs(cfg)
+        ap = abstract_params(specs)
+        pspecs = param_pspecs(specs, lr)
+        n_params = param_count(specs)
+        per_layer = lambda tree: T.unstack_layers(tree, cfg)
+        tok_sh = lambda s: resolve_pspec(("batch", "seq" if s > 1 else None), (batch, s), lr)
+
+        if cell.kind == "train":
+            from repro_torch.optim.adamw import AdamWConfig
+
+            state, layout, state_sh = abstract_train_state(ap, pspecs, per_layer)
+            batch_abs = {"tokens": meta_tensor((batch, seq)), "labels": meta_tensor((batch, seq))}
+            batch_sh = {"tokens": tok_sh(seq), "labels": tok_sh(seq)}
+            fn = train_step_fn(lambda p, bb: T.loss_fn(p, bb, cfg), AdamWConfig(),
+                               schedule=True)
+            return DryRunSpec(
+                fn=fn, args=(state, batch_abs), in_specs=(state_sh, batch_sh),
+                state=(layout, batch_abs), donate=(0,), rules=rules,
+                meta={"params": n_params, "tokens": batch * seq, "seq": seq,
+                      "n_groups": n_groups_full,
+                      "model_flops": lm_model_flops(cfg, batch * seq, "train"),
+                      "kind": "train"})
+
+        icfg = dataclasses.replace(cfg, remat=False)
+        if cell.kind == "prefill":
+            tok = meta_tensor((batch, seq))
+
+            def prefill(params, tokens):
+                return T.Transformer(icfg, params, device="meta").prefill_forward(tokens)
+
+            return DryRunSpec(
+                fn=prefill, args=(per_layer(ap), tok), in_specs=(pspecs, tok_sh(seq)),
+                state=(ap, tok), rules=rules,
+                meta={"params": n_params, "tokens": batch * seq, "seq": seq,
+                      "n_groups": n_groups_full,
+                      "model_flops": lm_model_flops(cfg, batch * seq, "prefill"),
+                      "kind": "prefill"})
+
+        # decode: one new token against a seq-long KV cache
+        kv_abs = T.abstract_kv_cache(icfg, batch, seq)
+        kv_sh = T.kv_cache_pspecs(icfg, batch, seq, lr)
+        tok = meta_tensor((batch, 1))
+
+        def decode(params, kv, tokens):
+            return T.Transformer(icfg, params, device="meta").serve_step(kv, tokens)
+
+        return DryRunSpec(
+            fn=decode, args=(per_layer(ap), kv_abs, tok),
+            in_specs=(pspecs, kv_sh, tok_sh(1)), state=(ap, kv_abs, tok), donate=(1,),
+            rules=rules,
+            meta={"params": n_params, "tokens": batch,
+                  "model_flops": lm_model_flops(cfg, batch, "decode"), "kind": "decode"})
+
+
+# ---------------------------------------------------------------------------
+# GNN family builder
+# ---------------------------------------------------------------------------
+
+GNN_RULES = {"nodes": ("data", "model"), "edges": ("data", "model")}
 
 GNN_SHAPES = {
     "full_graph_sm": dict(kind="train", n_nodes=2708, n_edges=10556, d_feat=1433, n_out=7),
@@ -20,3 +270,101 @@ GNN_SHAPES = {
     ),
     "molecule": dict(kind="train", n_nodes=30, n_edges=64, batch=128, d_feat=16),
 }
+
+
+def gnn_cells() -> Tuple[Cell, ...]:
+    return tuple(
+        Cell(shape=s, kind=d["kind"], rules=GNN_RULES) for s, d in GNN_SHAPES.items()
+    )
+
+
+def _gnn_batch_abstract(shape: str, d: dict, needs_pos: bool, lr) -> Tuple[dict, dict]:
+    """(meta batch, spec tree) for the non-distributed cells."""
+    f32 = torch.float32
+    if shape == "molecule":
+        n = d["batch"] * d["n_nodes"]
+        e = d["batch"] * d["n_edges"] * 2  # bidirected
+        batch = {
+            "node_feat": meta_tensor((n, d["d_feat"]), f32),
+            "node_pos": meta_tensor((n, 3), f32),
+            "src": meta_tensor((e,)),
+            "dst": meta_tensor((e,)),
+            "graph_id": meta_tensor((n,)),
+            "graph_targets": meta_tensor((d["batch"], 1), f32),
+            "labels": meta_tensor((n,)),
+            "node_target": meta_tensor((n, 1), f32),
+        }
+    elif shape == "minibatch_lg":
+        from repro_torch.graph.sampler import sampled_shape
+
+        max_nodes, max_edges = sampled_shape(d["batch_nodes"], d["fanout"])
+        batch = {
+            "node_feat": meta_tensor((max_nodes, d["d_feat"]), f32),
+            "node_pos": meta_tensor((max_nodes, 3), f32),
+            "src": meta_tensor((max_edges,)),
+            "dst": meta_tensor((max_edges,)),
+            "labels": meta_tensor((max_nodes,)),
+            "seed_mask": meta_tensor((max_nodes,), f32),
+        }
+    else:  # full_graph_sm
+        n, e = d["n_nodes"], d["n_edges"]
+        batch = {
+            "node_feat": meta_tensor((n, d["d_feat"]), f32),
+            "node_pos": meta_tensor((n, 3), f32),
+            "src": meta_tensor((e,)),
+            "dst": meta_tensor((e,)),
+            "labels": meta_tensor((n,)),
+        }
+    if not needs_pos:
+        batch.pop("node_pos", None)
+    ax = {
+        "node_feat": ("nodes", None),
+        "node_pos": ("nodes", None),
+        "src": ("edges",),
+        "dst": ("edges",),
+        "graph_id": ("nodes",),
+        "graph_targets": (None, None),
+        "labels": ("nodes",),
+        "seed_mask": ("nodes",),
+        "node_target": ("nodes", None),
+    }
+    return batch, {k: resolve_pspec(ax[k], v.shape, lr) for k, v in batch.items()}
+
+
+def build_gnn_dryrun(arch_name: str, model_mod, model_cfg, shape: str, mesh, cell: Cell,
+                     needs_pos: bool) -> DryRunSpec:
+    from repro_torch.models.param import tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+
+    d = GNN_SHAPES[shape]
+    rules = merged_rules(cell.rules)
+    with set_mesh_rules(mesh, rules) as lr:
+        specs = model_mod.param_specs(model_cfg)
+        ap = abstract_params(specs)
+        n_params = param_count(specs)
+        # GNN params are small: replicated (the graph is the sharded object)
+        pspecs = tree_map(lambda s: (), specs)
+        state, layout, state_sh = abstract_train_state(ap, pspecs)
+
+        # MODEL_FLOPS for message passing ~= 6 * (per-edge MLP flops * E +
+        # per-node MLP flops * N) -- computed as 6 * params_touched * items
+        if shape == "molecule":
+            e_eff = d["batch"] * d["n_edges"] * 2
+            n_eff = d["batch"] * d["n_nodes"]
+        elif shape == "minibatch_lg":
+            e_eff, n_eff = 168_960, 169_984
+        else:
+            e_eff, n_eff = d["n_edges"], d["n_nodes"]
+        meta = {"params": n_params, "tokens": n_eff, "edges": e_eff,
+                "n_groups": model_cfg.n_layers,
+                "model_flops": 6.0 * n_params * (e_eff + n_eff) / max(n_eff, 1),
+                "kind": "train", "distributed": bool(d.get("distributed"))}
+
+        if d.get("distributed"):
+            return DryRunSpec(fn=None, args=(state,), in_specs=(state_sh,), state=(layout,),
+                              rules=rules, meta=dict(meta, not_counted=FOUR_CARD_ITEM))
+        inputs, ispecs = _gnn_batch_abstract(shape, d, needs_pos, lr)
+        fn = train_step_fn(lambda p, b: model_mod.loss_fn(p, b, model_cfg),
+                           AdamWConfig(weight_decay=0.0))
+        return DryRunSpec(fn=fn, args=(state, inputs), in_specs=(state_sh, ispecs),
+                          state=(layout, inputs), donate=(0,), rules=rules, meta=meta)

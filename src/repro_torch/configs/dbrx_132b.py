@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import LMConfig
 
 
@@ -21,3 +22,15 @@ def smoke_cfg() -> LMConfig:
                     top_k=2, d_ff_expert=128,
                     capacity_factor=8.0,  # drop-free at smoke scale
                     dtype=torch.float32, remat=False)
+
+
+ARCH = base.ArchDef(
+    name="dbrx-132b",
+    family="lm",
+    cells=base.lm_cells(long_ok=False),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_lm_dryrun(
+        model_cfg(), shape, mesh, ARCH.cell(shape)
+    ),
+)

@@ -22,3 +22,16 @@ def model_cfg(shape: str = "full_graph_sm") -> model.EGNNConfig:
 def smoke_cfg() -> model.EGNNConfig:
     return model.EGNNConfig(n_layers=2, d_hidden=16, d_in=8, n_out=3,
                             task="node_classification")
+
+
+ARCH = base.ArchDef(
+    name="egnn",
+    family="gnn",
+    cells=base.gnn_cells(),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_gnn_dryrun(
+        "egnn", model, model_cfg(shape), shape, mesh, ARCH.cell(shape),
+        needs_pos=True,
+    ),
+)

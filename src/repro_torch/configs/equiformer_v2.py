@@ -24,3 +24,16 @@ def smoke_cfg() -> model.EquiformerV2Config:
     return model.EquiformerV2Config(
         n_layers=2, d_hidden=16, l_max=2, m_max=1, n_heads=2, d_in=8, n_out=3,
     )
+
+
+ARCH = base.ArchDef(
+    name="equiformer-v2",
+    family="gnn",
+    cells=base.gnn_cells(),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_gnn_dryrun(
+        "equiformer-v2", model, model_cfg(shape), shape, mesh, ARCH.cell(shape),
+        needs_pos=True,
+    ),
+)

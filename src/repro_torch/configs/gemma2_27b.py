@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import LMConfig
 
 
@@ -22,3 +23,15 @@ def smoke_cfg() -> LMConfig:
                     head_dim=16, d_ff=128, vocab=256, window=16, pattern=("local", "global"),
                     attn_softcap=50.0, final_softcap=30.0, embed_scale=True,
                     post_norms=True, dtype=torch.float32, remat=False)
+
+
+ARCH = base.ArchDef(
+    name="gemma2-27b",
+    family="lm",
+    cells=base.lm_cells(long_ok=True),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_lm_dryrun(
+        model_cfg(), shape, mesh, ARCH.cell(shape)
+    ),
+)

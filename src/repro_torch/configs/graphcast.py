@@ -29,3 +29,16 @@ def smoke_cfg() -> model.GraphCastConfig:
         n_layers=2, d_hidden=32, n_vars=8, d_in=8, n_out=3,
         mode="generic", task="node_classification",
     )
+
+
+ARCH = base.ArchDef(
+    name="graphcast",
+    family="gnn",
+    cells=base.gnn_cells(),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_gnn_dryrun(
+        "graphcast", model, model_cfg(shape), shape, mesh, ARCH.cell(shape),
+        needs_pos=False,
+    ),
+)

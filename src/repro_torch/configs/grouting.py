@@ -18,7 +18,18 @@ of this size at degree 8 pads to about 4.65 M rows, inside `N_ROWS`.
 
 from __future__ import annotations
 
-from repro_torch.serve.graph_serving import GServeConfig
+import dataclasses
+
+from repro_torch.configs.base import ArchDef, Cell, DryRunSpec, merged_rules
+from repro_torch.distributed.mesh import n_processors
+from repro_torch.distributed.mesh_utils import mesh_axes
+from repro_torch.serve.graph_serving import GServeConfig, abstract_serve_inputs
+
+G_RULES = {"storage": "model", "proc": "data"}
+
+# why the dry run does not count the step: it runs on live tensors
+NOT_COUNTED = ("the serving step reads the device once a chain link (the trip count "
+               "of its continuation loop), which meta tensors cannot answer")
 
 N_NODES = 1 << 22
 ROW_WIDTH = 32
@@ -54,3 +65,37 @@ def smoke_cfg() -> GServeConfig:
         queries_per_proc=4, hops=2, max_frontier=64, cache_sets=64,
         cache_ways=2, read_capacity=256, chain_depth=4,
     )
+
+
+def build_dryrun(shape: str, mesh) -> DryRunSpec:
+    """One processor's inputs as `meta` tensors and the reference's flops
+    proxy. The port's inputs are one rank's own (`abstract_serve_inputs`):
+    queries and cache of its processor, its storage shard's rows, the
+    routing tables replicated; so one spec, (), covers every leaf, whose
+    bytes are the device's. The storage shards are the mesh's "model" axis."""
+    axes = mesh_axes(mesh)
+    cfg = dataclasses.replace(model_cfg(shape), n_storage_shards=int(axes["model"]))
+    rows_per_shard = -(-cfg.n_rows // cfg.n_storage_shards)
+    inputs = abstract_serve_inputs(mesh, cfg, rows_per_shard)
+    n_proc = n_processors(mesh)
+    # MODEL_FLOPS proxy: rows touched x row width compares per hop
+    touched = n_proc * cfg.queries_per_proc * cfg.max_frontier * cfg.hops
+    return DryRunSpec(
+        fn=None,
+        args=(inputs,),
+        in_specs=((),),  # a prefix: every leaf is the device's own
+        rules=merged_rules(G_RULES),
+        meta={"params": 0, "tokens": n_proc * cfg.queries_per_proc,
+              "model_flops": float(touched * cfg.row_width), "kind": "serve",
+              "not_counted": NOT_COUNTED},
+    )
+
+
+ARCH = ArchDef(
+    name="grouting",
+    family="grouting",
+    cells=tuple(Cell(shape=s, kind=d["kind"], rules=G_RULES) for s, d in SHAPES.items()),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=build_dryrun,
+)

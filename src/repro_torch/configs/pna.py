@@ -18,3 +18,16 @@ def model_cfg(shape: str = "full_graph_sm") -> model.PNAConfig:
 
 def smoke_cfg() -> model.PNAConfig:
     return model.PNAConfig(n_layers=2, d_hidden=12, d_in=8, n_out=3)
+
+
+ARCH = base.ArchDef(
+    name="pna",
+    family="gnn",
+    cells=base.gnn_cells(),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_gnn_dryrun(
+        "pna", model, model_cfg(shape), shape, mesh, ARCH.cell(shape),
+        needs_pos=False,
+    ),
+)

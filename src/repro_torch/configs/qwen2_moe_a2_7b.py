@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import LMConfig
 
 
@@ -23,3 +24,15 @@ def smoke_cfg() -> LMConfig:
                     top_k=2, d_ff_expert=64, d_ff_shared=128,
                     capacity_factor=8.0,  # drop-free at smoke scale
                     qkv_bias=True, dtype=torch.float32, remat=False)
+
+
+ARCH = base.ArchDef(
+    name="qwen2-moe-a2.7b",
+    family="lm",
+    cells=base.lm_cells(long_ok=False),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_lm_dryrun(
+        model_cfg(), shape, mesh, ARCH.cell(shape)
+    ),
+)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import LMConfig
 
 
@@ -18,3 +19,15 @@ def smoke_cfg() -> LMConfig:
     return LMConfig(name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                     head_dim=16, d_ff=128, vocab=256, qk_norm=True,
                     dtype=torch.float32, remat=False)
+
+
+ARCH = base.ArchDef(
+    name="qwen3-4b",
+    family="lm",
+    cells=base.lm_cells(long_ok=False),
+    model_cfg=model_cfg,
+    smoke_cfg=smoke_cfg,
+    build_dryrun=lambda shape, mesh: base.build_lm_dryrun(
+        model_cfg(), shape, mesh, ARCH.cell(shape)
+    ),
+)

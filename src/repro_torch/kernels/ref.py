@@ -119,11 +119,14 @@ def attention_grads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.autograd.grad(out, leaves, do)
 
 
+ATTN_CHUNK = 512  # q rows a chunk of `attention_chunked_ref`
+
+
 def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           scale: Optional[float] = None, q_offset: int = 0,
-                          chunk: int = 512) -> torch.Tensor:
+                          chunk: int = ATTN_CHUNK) -> torch.Tensor:
     """`attention_ref` one q chunk at a time: the same math, with the
     (Sq, Skv) logits held for `chunk` rows at once. A ragged Sq takes
     `attention_ref` whole."""

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh_utils import LogicalRules, resolve_pspec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,16 @@ def init_params(specs, generator: Optional[torch.Generator] = None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     return tree_map(lambda s: _draw(s, generator, dev), specs)
+
+
+def abstract_params(specs):
+    """The spec tree as `meta` tensors: shapes and dtypes, no memory."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def param_pspecs(specs, lr: Optional[LogicalRules] = None):
+    """The spec tree as sharding specs (`distributed.mesh_utils`)."""
+    return tree_map(lambda s: resolve_pspec(s.axes, s.shape, lr), specs)
 
 
 def param_count(specs) -> int:

@@ -363,6 +363,23 @@ class Transformer(nn.Module):
         return self._logits(x[:, -1:, :])[:, 0], {"layers": new_layers}
 
 
+def abstract_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
+                      dtype: Optional[torch.dtype] = None) -> dict:
+    """`Transformer.init_kv_cache`'s cache as `meta` tensors, pos 0."""
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    kv = lambda: torch.empty(shape, dtype=dtype or cfg.dtype, device="meta")
+    return {"layers": [{"k": kv(), "v": kv(), "pos": 0} for _ in range(cfg.n_layers)]}
+
+
+def kv_cache_pspecs(cfg: LMConfig, batch: int, max_seq: int, lr=None) -> dict:
+    """The decode cache's sharding specs (`distributed.mesh_utils`)."""
+    from repro_torch.distributed.mesh_utils import resolve_pspec
+
+    kv = resolve_pspec(("batch", "kv_heads", "kv_seq", None),
+                       (batch, cfg.n_kv_heads, max_seq, cfg.head_dim), lr)
+    return {"layers": [{"k": kv, "v": kv, "pos": ()} for _ in range(cfg.n_layers)]}
+
+
 def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> Tuple[torch.Tensor, dict]:
     """The reference's `loss_fn(params, batch, cfg)` over the port's tree:
     batch {"tokens", "labels": (B, S)} -> (loss, {"ce", "aux"}). Gradients

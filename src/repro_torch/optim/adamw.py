@@ -41,6 +41,19 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_opt_state(abstract_params) -> dict:
+    """`adamw_init`'s state for a tree of `meta` parameters, as `meta` tensors."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"m": tree_map(f32, abstract_params), "v": tree_map(f32, abstract_params),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_state_pspecs(param_specs_tree) -> dict:
+    """The optimizer state's sharding specs: m and v as their parameters."""
+    return {"m": tree_map(lambda s: s, param_specs_tree),
+            "v": tree_map(lambda s: s, param_specs_tree), "count": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))

@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 import _graph_serving_cases as C
 import _torch_dist as D
+from _torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from repro.core.storage import bucket_by_owner as j_bucket, stripe_rows as j_stripe
 from repro_torch import convert
 from repro_torch.core.storage import bucket_by_owner, build_storage, make_serving_storage, \

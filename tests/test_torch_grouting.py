@@ -22,6 +22,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from repro.configs import grouting as rgrouting
 from repro.graph.csr import to_padded as r_to_padded
 from repro.graph.generators import powerlaw_graph as r_powerlaw_graph
@@ -33,16 +34,6 @@ from repro_torch.distributed.mesh import init_mesh
 from repro_torch.graph.csr import to_padded
 from repro_torch.graph.generators import community_graph, powerlaw_graph
 from repro_torch.launch.serve_graph import serve_bursts
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread a process (the suite runs several
-    processes on the machine's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 BACKEND_DEFAULTS = {"expand_backend"}

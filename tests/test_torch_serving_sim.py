@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from repro.core import costmodel as rcost
 from repro.core import serving as rsim
 from repro.core import workloads as rwl
@@ -50,16 +51,6 @@ from repro_torch.graph import partition as tpart
 from repro_torch.graph.csr import CSRGraph, to_padded
 from repro_torch.graph.generators import community_graph, powerlaw_graph
 from repro_torch.serve.engine import EngineRunConfig, ServingEngine
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread a process (the suite runs several
-    processes on the machine's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SIM_SCHEMES = ("no_cache", "next_ready", "hash", "landmark", "embed")
