@@ -119,6 +119,22 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      shapes, with the bound, the bottleneck and the measured model-flops
      share; `launch/dryrun.py` for one cell of each family at the 16x16
      mesh, each in a subprocess; and `--list`'s cells and skips.
+ 13. runs the sharded paths as four gloo ranks on the one card
+     (`sharded_paths`; NCCL refuses two ranks on one device): gloo's
+     collectives on CUDA tensors checked; the expert-parallel MoE layer at
+     qwen2-moe-a2.7b's full width at meshes (1, 4) and (2, 2), 4,096 and 16
+     tokens a data shard (the FSDP and weight-stationary regimes),
+     drop-free and at factor 1.25, output and every gradient against the
+     single-device path; the expert-parallel prefill of qwen2-moe cut to 2
+     of 24 layers, 1 x 4,096 tokens, against the world of one's (its flash
+     launches counted and profiled on every rank); PNA's forward over the
+     ogb_products graph cut by PRODUCTS_CUT against the world of one's
+     loss, its unserved gathers counted; the four GNN archs at full width
+     on 1,000-node graphs in float32, loss and gradients against the
+     unsharded loss, with TF32 matmuls as a control that must fall outside;
+     `compressed_psum` at Qwen3-4B's shapes against the CPU; before the
+     ranks, a world of one over NCCL runs the expert-parallel layer and the
+     PNA loss (NCCL's branch of each collective).
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases; for
@@ -4525,6 +4541,870 @@ def planning_and_examples(device, lm: dict, train: dict, zoo: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded paths, four gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4
+SHARD_TIMEOUT_S = 480  # the ranks' whole run, their start included
+SHARD_DIR = "build/sharded"  # inputs the parent writes once for the ranks (git-ignored)
+MOE_EP_MESHES = ((1, 4), (2, 2))  # (data, model)
+MOE_EP_TOKENS = (4096, 16)  # a data shard's: FSDP weight gathers, weight-stationary (T k <= 64)
+MOE_EP_TOL = 1e-5  # of each leaf's max |value|, float32, TF32 off
+MOE_AUX_WEIGHT = 0.3  # the layer checks' loss: sum(out * W) + this * aux
+EP_LAYER_VOCAB = 1024  # distinct token rows of the layer checks' inputs
+EP_PREFILL_LAYERS = 2  # qwen2-moe-a2.7b at full width, cut from 24, drawn at 24's scale
+EP_PREFILL_TOKENS = 4096
+EP_PREFILL_TOL = 1e-3  # relative L2 of the last logits; above the model's own (input moved an ulp)
+# the four-rank PNA forward at ogb_products' nodes and edges / this: at full
+# size its forward took 153 s a rank and phase 13 346 s, past its ~200 s
+PRODUCTS_CUT = 4
+DIST_LOSS_RTOL = 1e-5  # a four-rank GNN loss against the world of one's or the unsharded one
+# The four archs' gradient check: each at its ogb_products width, in float32
+# with TF32 off on both sides (the configs' dtype), four ranks against the
+# unsharded loss_fn, at a loss that is finite and ordinary. EGNN and
+# GraphCast sum their messages, so a power-law hub (in-degree 601 on
+# powerlaw_graph(1000, 3)) takes their losses to 2.0e8 and 2.7e31 at the
+# reference's init; they run on an Erdos-Renyi graph of bounded in-degree,
+# as a mesh has (EGNN's loss 6.56), and GraphCast, whose 16 residual layers
+# still reach 4.5e7 there, with each processor layer's output weights drawn
+# at 1 / sqrt(16) of the reference's scale, a deep residual stack's usual
+# init (loss 5.50; float32 gradients 1.0e-6 of a leaf's max from float64's).
+ZOO_DIST_GRAPH = dict(n=1000, m=3, seed=0)  # powerlaw_graph: PNA, EquiformerV2
+ZOO_DIST_ER = dict(n=1000, avg_degree=6.0, seed=0)  # erdos_renyi_graph: the summing archs
+ZOO_DIST_ON_ER = ("egnn", "graphcast")
+# Of each leaf's max |gradient|, set from two readings on the card: the
+# four ranks in float32 (held within) and the same ranks with TF32 matmuls,
+# a control in lower precision that must land above. Each is the geometric
+# mean of the largest float32 reading and the smallest control reading
+# measured, rounded down to a 1-2-5 step (PERF.md). PNA's unsharded
+# E[m^2] - E[m]^2 rounds most, and differently from run to run with the
+# order of its atomic adds: 8.8e-5 and 6.6e-4, its control 0.163 (ROADMAP,
+# the slice's hazards).
+ZOO_DIST_TOL = {"pna": 1e-2, "egnn": 1e-4, "graphcast": 5e-5, "equiformer-v2": 1e-4}
+GC_LEAVES = {"layers.0.attn.wk": (2560, 1024), "layers.0.attn.k_norm": (128,),
+             "layers.0.ffn.w_down": (9728, 2560), "final_norm": (2560,)}  # Qwen3-4B's shapes
+GC_STEPS = 2
+
+
+def spawn_ranks(fn, world: int, args, timeout: float) -> list:
+    """fn(rank, world, *args) in `world` spawned processes; their results
+    by rank. A rank's exception, a rank that dies, or no result from every
+    rank within `timeout` seconds (a hung collective) stops every rank and
+    raises."""
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, args, out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, done = [None] * world, False
+    deadline = time.monotonic() + timeout
+    try:
+        for _ in range(world):
+            while True:
+                try:
+                    rank, res, err = out.get(timeout=1.0)
+                    break
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise RuntimeError(f"{fn.__name__}: a rank exited with {dead[0]}")
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"{fn.__name__}: no result from every rank in "
+                                           f"{timeout} s")
+            if err:
+                raise RuntimeError(f"{fn.__name__}, rank {rank}:\n{err}")
+            results[rank] = res
+        done = True
+    finally:
+        for p in procs:
+            if not done:
+                p.kill()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return results
+
+
+def _rank_main(fn, rank, world, args, out):
+    import traceback
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    try:
+        out.put((rank, fn(rank, world, *args), None))
+    except BaseException:  # reported to the parent, which stops every rank
+        out.put((rank, None, traceback.format_exc()))
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    """{leaf: max |got - want| / max |want|}."""
+    return {k: float((got[k].double() - want[k].double()).abs().max()
+                     / want[k].double().abs().max().clamp(min=1e-30)) for k in want}
+
+
+def ep_capacity(router, x_blocks, mc) -> int:
+    """A drop-free capacity that no larger one is needed for: the busiest
+    expert's assignments over the blocks routed apart, rounded up to 8."""
+    from repro_torch.models.moe import route
+
+    busiest = 0
+    for x in x_blocks:
+        counts = torch.bincount(route(router, x, mc, 1).idx.reshape(-1), minlength=mc.n_experts)
+        busiest = max(busiest, int(counts.max()))
+    return -(-busiest // 8) * 8
+
+
+def ep_layer_case(full, mc, mesh, shape, T_loc, factor, dev) -> dict:
+    """One expert-parallel MoE layer case on this rank: forward and backward
+    of sum(out * W) + MOE_AUX_WEIGHT aux at `mesh`, against the
+    single-device `moe_routed` of the same full tree over the same routing
+    groups (each data shard's tokens, or all of them in the
+    weight-stationary regime, whose capacity spans the shards); returns
+    the worst error by leaf, the capacity and the dropped share. The
+    tokens are Zipf-repeated rows: random normal ones route evenly, and
+    at factor 1.25 none drop."""
+    from repro_torch.distributed.mesh_utils import local_shard, set_mesh_rules
+    from repro_torch.models.moe import (aux_loss, expert_capacity, moe_ffn,
+                                        moe_ffn_expert_parallel, moe_local_params, moe_routed,
+                                        moe_shard_specs)
+
+    from repro_torch.data.tokens import token_batch
+
+    n_data = shape[0]
+    g = torch.Generator(device=dev).manual_seed(T_loc + 7)
+    # tokens that repeat as a prompt's do (Zipf ids over EP_LAYER_VOCAB
+    # rows, a little noise): repeats route alike, so factor 1.25 drops
+    ids = torch.from_numpy(token_batch(0, 1, T_loc * n_data, EP_LAYER_VOCAB)["tokens"])
+    rows = torch.randn(EP_LAYER_VOCAB, mc.d_model, generator=g, device=dev)
+    x = rows[ids.view(-1).long().to(dev)] + 0.01 * torch.randn(
+        T_loc * n_data, mc.d_model, generator=g, device=dev)
+    w = torch.randn(T_loc * n_data, mc.d_model, generator=g, device=dev)
+    blocks = list(x.chunk(n_data))
+    ws = T_loc * mc.top_k <= 64
+    groups = [x] if ws else blocks  # what one rank routes together
+    if factor is None:  # a weight-stationary rank's capacity spans the data shards
+        cap = -(-ep_capacity(full["router"], groups, mc) // (n_data if ws else 1))
+    else:
+        cap = expert_capacity(T_loc, mc)
+    ref_cap = cap * n_data if ws else cap
+
+    # single device over the same routing groups
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in _flat_list(full).items()}
+    tree = _unflat(leaves, full)
+    outs, dxs, dropped, assigned = [], [], 0, 0
+    for xi, wi in zip(groups, [w] if ws else list(w.chunk(n_data))):
+        xi = xi.clone().requires_grad_()
+        o, r = moe_routed(tree, xi, mc, ref_cap)
+        (torch.sum(o * wi) + MOE_AUX_WEIGHT * aux_loss(r) / len(groups)).backward()
+        outs.append(o.detach())
+        dxs.append(xi.grad)
+        dropped += int((~r.keep).sum())
+        assigned += r.keep.numel()
+    out_ref, dx_ref = torch.cat(outs), torch.cat(dxs)
+    specs = moe_shard_specs(mc, mesh)
+    want = {k: local_shard(v.grad, _spec_of(specs, k), mesh) for k, v in leaves.items()}
+    tok = (("data",), None)
+    want["out"] = local_shard(out_ref, tok, mesh)
+    want["x"] = local_shard(dx_ref, tok, mesh)
+    del leaves, tree, outs, dxs, out_ref, dx_ref
+
+    # expert parallel
+    local = {k: v.requires_grad_() for k, v in _flat_list(moe_local_params(full, mc, mesh)).items()}
+    x_loc = local_shard(x, tok, mesh).requires_grad_()
+    if shape[1] > 1:  # through `moe_ffn`'s switch, as a caller reaches it
+        with set_mesh_rules(mesh):
+            o, aux = moe_ffn(_unflat(local, full), x_loc, mc, capacity=cap)
+    else:  # a world of one: the switch needs a model axis above 1, so called directly
+        o, r = moe_ffn_expert_parallel(_unflat(local, full), x_loc, mc, mesh, cap)
+        aux = r.aux
+    (torch.sum(o * local_shard(w, tok, mesh)) + MOE_AUX_WEIGHT * aux).backward()
+    got = {k: v.grad for k, v in local.items()}
+    got["out"], got["x"] = o.detach(), x_loc.grad
+    errs = _leaf_errors(got, want)
+    return dict(mesh=list(shape), tokens_a_shard=T_loc, regime="weight-stationary" if ws else
+                "FSDP gathers", capacity=cap, capacity_factor=factor,
+                dropped_share=dropped / assigned, worst=max(errs.values()),
+                worst_leaf=max(errs, key=errs.get), finite=bool(torch.isfinite(o).all()))
+
+
+def _flat_list(tree, prefix=""):
+    """A tree of dicts and lists -> {"a/0/b": leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_list(v, f"{prefix}{k}/"))
+    return out
+
+
+def _unflat(flat, like, prefix=""):
+    return {k: _unflat(flat, v, f"{prefix}{k}/") if isinstance(v, dict) else flat[prefix + k]
+            for k, v in like.items()}
+
+
+def _spec_of(specs, path):
+    node = specs
+    for part in path.split("/"):
+        node = node[part]
+    return node
+
+
+def moe_layer_full(dev):
+    """(qwen2-moe-a2.7b's MoE config in float32, one layer's full tree drawn
+    on `dev` from a seeded generator: the same on every rank). Drawn as the
+    layer is inside the model (`draw_params`): the reference draws a stacked
+    leaf with std 1 / sqrt(n_groups), 1 / sqrt(24) here, which routes
+    peakedly enough for factor 1.25 to drop (PERF.md, the MoE cells)."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.models.moe import moe_param_specs
+    from repro_torch.models.param import init_params, tree_map
+
+    cfg = qwen2_moe_a2_7b.model_cfg()
+    mc = dataclasses.replace(cfg.moe_cfg(), dtype=torch.float32)
+    scale = float(1.0 / np.sqrt(cfg.n_groups))
+    specs = tree_map(lambda p: dataclasses.replace(p, scale=scale)
+                     if p.init == "normal" and p.scale is None else p, moe_param_specs(mc))
+    return mc, init_params(specs, torch.Generator(device=dev).manual_seed(5), dev)
+
+
+def ep_prefill_cfg():
+    """(qwen2-moe-a2.7b cut to EP_PREFILL_LAYERS in float32, drop-free at
+    capacity factor E / k, its full depth)."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+
+    cfg = qwen2_moe_a2_7b.model_cfg()
+    return dataclasses.replace(cfg, n_layers=EP_PREFILL_LAYERS, dtype=torch.float32,
+                               capacity_factor=cfg.n_experts / cfg.top_k), cfg.n_layers
+
+
+def ep_prefill_tokens(cfg, dev):
+    from repro_torch.data.tokens import token_batch
+
+    return torch.from_numpy(token_batch(0, 1, EP_PREFILL_TOKENS, cfg.vocab)["tokens"]).to(dev)
+
+
+def gc_grads(step: int, rank: int) -> dict:
+    """A rank's gradients at Qwen3-4B's shapes (CPU, float32), as data-parallel
+    gradients are: a part common to every rank plus the rank's own, a tenth
+    its size."""
+    out = {}
+    for i, (k, shape) in enumerate(GC_LEAVES.items()):
+        common = torch.Generator().manual_seed(1000 * step + i)
+        own = torch.Generator().manual_seed(1000 * step + i + 100 * (rank + 1))
+        out[k] = 0.01 * (torch.randn(shape, generator=common) +
+                         0.1 * torch.randn(shape, generator=own))
+    return out
+
+
+def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dict:
+    """One of the phase's four ranks: gloo on `device_type` ("cuda": every
+    rank on cuda:0). In order, every rank alike: the gloo route on the
+    device's tensors, the expert-parallel MoE layer cases, the
+    expert-parallel prefill, the PNA forward at the cut ogb_products size,
+    the four archs' losses and gradients on the cut graph, compressed_psum
+    over a "pod" axis. Returns figures only (no tensor crosses back but
+    the prefill's last logits)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import ProcessMesh, init_mesh
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if device_type == "cuda":
+        build.load_library()  # the parent built it: the same sources, found by hash
+    store = dist.FileStore(os.path.join(shard_dir, "store"), world)
+    mesh, dev = init_mesh((2, 2), ("data", "model"), device_type, backend="gloo", store=store,
+                          rank=rank, world_size=world)
+    meshes = {(2, 2): mesh, (1, 4): ProcessMesh((1, 4), ("data", "model")),
+              "pod": ProcessMesh((world,), ("pod",))}
+    out = {"start_s": time.perf_counter() - t0}
+
+    # gloo on this device's tensors: the collectives the port calls, checked
+    x = torch.arange(2 * world, dtype=torch.float32, device=dev) + 100 * rank
+    a2a = torch.empty_like(x)
+    dist.all_to_all_single(a2a, x)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    red = x.clone()
+    dist.all_reduce(red)
+    want_a2a = torch.cat([torch.arange(2 * rank, 2 * rank + 2, dtype=torch.float32) + 100 * s
+                          for s in range(world)])
+    if not (torch.equal(a2a.cpu(), want_a2a) and
+            torch.equal(torch.stack(parts).cpu()[:, 0], 100.0 * torch.arange(world)) and
+            torch.equal(red.cpu(), (torch.arange(2 * world) * world + 100 * sum(range(world)))
+                        .float())):
+        raise AssertionError(f"rank {rank}: gloo on {dev} tensors gave wrong results")
+    out["route"] = dict(backend=dist.get_backend(), tensors=str(dev.type),
+                        all_to_all_single="ok", all_gather="ok", all_reduce="ok",
+                        staged_through_host_by_the_port=False)
+
+    # expert-parallel MoE layer at qwen2-moe's full width
+    t = time.perf_counter()
+    mc, full = moe_layer_full(dev)
+    out["moe_layer"] = [ep_layer_case(full, mc, meshes[shape], shape, T_loc, factor, dev)
+                        for shape in MOE_EP_MESHES for T_loc in MOE_EP_TOKENS
+                        for factor in (None, mc.capacity_factor)]
+    del full
+    out["moe_layer_s"] = time.perf_counter() - t
+    _empty_cache(dev)
+
+    # the expert-parallel prefill at (1, 4): the main path of the phase
+    out["prefill"] = ep_prefill_rank(meshes[(1, 4)], dev, rank)
+    _empty_cache(dev)
+    out["pna"] = pna_rank(mesh, dev, shard_dir)
+    _empty_cache(dev)
+    out["zoo"] = zoo_dist_rank(mesh, dev, shard_dir)
+    _empty_cache(dev)
+    out["compression"] = gc_rank(meshes["pod"], dev, rank)
+    if dev.type == "cuda":
+        out["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    out["wall_s"] = time.perf_counter() - t0
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _empty_cache(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def ep_prefill_rank(mesh, dev, rank) -> dict:
+    """qwen2-moe cut to EP_PREFILL_LAYERS at full width, float32, each rank
+    holding its quarter of the experts (`expert_parallel_params`) and every
+    other leaf whole, prefilled under the mesh's rules: one request of
+    EP_PREFILL_TOKENS. The flash launches counted from 0 around it (the
+    wrapper's count) and read from a profile of it."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import set_mesh_rules
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.transformer import Transformer, expert_parallel_params
+
+    cfg, full_depth = ep_prefill_cfg()
+    t = time.perf_counter()
+    tree = expert_parallel_params(draw_params(cfg, dev, full_depth), cfg, mesh)
+    _empty_cache(dev)
+    model = Transformer(cfg, params=tree, device=dev)
+    del tree
+    tokens = ep_prefill_tokens(cfg, dev)
+    draw_s = time.perf_counter() - t
+    with set_mesh_rules(mesh):
+        model.prefill_forward(tokens)  # warm
+        _sync(dev)
+        LAUNCHES.clear()
+        t = time.perf_counter()
+        last, kvs = model.prefill_forward(tokens)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t
+        launches = dict(LAUNCHES)
+        del kvs
+        profiled = None
+        if dev.type == "cuda":
+            events = _device_events(lambda: model.prefill_forward(tokens))
+            profiled = sum(1 for name, _, _ in events if KERNELS["flash_attention"][2] in name)
+    mem = None
+    dist.barrier()  # every rank holds its model: the card's memory in use, read once
+    if dev.type == "cuda" and rank == 0:
+        mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout.strip()
+    dist.barrier()
+    return dict(last=last.float().cpu().numpy(), flash_launches=launches.get("flash_attention", 0),
+                launches=launches, flash_profiled=profiled, draw_s=draw_s, prefill_s=prefill_s,
+                finite=bool(torch.isfinite(last).all()), memory_used=mem)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def pna_rank(mesh, dev, shard_dir) -> dict:
+    """PNA at full width over the four ranks, forward only, on the cut
+    ogb_products graph the parent wrote (`plan_dist_graph`'s defaults):
+    the loss and this rank's unserved gather requests (each layer's: the
+    same edges every layer)."""
+    from repro_torch.configs import pna as pna_config
+    from repro_torch.models.gnn.distributed import (gather_served, local_dist_inputs,
+                                                    make_dist_gnn_loss)
+    from repro_torch.models.gnn import pna
+    from repro_torch.models.param import init_params, tree_map
+
+    t = time.perf_counter()
+    dcfg, arrays = _load_graph(os.path.join(shard_dir, "products"))
+    cfg = pna_config.model_cfg("ogb_products")
+    params = tree_map(lambda a: a.to(dev), init_params(
+        pna.param_specs(cfg), torch.Generator().manual_seed(0), "cpu"))
+    local = local_dist_inputs(arrays, dcfg, mesh, dev)
+    del arrays
+    served = gather_served(dcfg, local["e_src"], local["e_dst"])
+    real = (local["e_src"] >= 0) & (local["e_dst"] >= 0)
+    unserved = int(real.sum()) - int(served.sum())
+    load_s = time.perf_counter() - t
+    with torch.no_grad():
+        _sync(dev)
+        t = time.perf_counter()
+        loss, _ = make_dist_gnn_loss("pna", mesh, dcfg, cfg)(params, local)
+        loss = float(loss)
+    return dict(loss=loss, load_s=load_s, forward_s=time.perf_counter() - t,
+                unserved_a_layer=unserved, requests_a_layer=int(real.sum()),
+                chunks=dcfg.n_chunks, edge_chunk=dcfg.edge_chunk,
+                gather_capacity=dcfg.gather_capacity)
+
+
+def _load_graph(prefix):
+    import json as _json
+
+    from repro_torch.models.gnn.distributed import DistGraphConfig
+
+    with open(prefix + ".json") as f:
+        dcfg = DistGraphConfig(**{k: tuple(v) if k == "axes" else v
+                                  for k, v in _json.load(f).items()})
+    arrays = {k: np.load(f"{prefix}.{k}.npy", mmap_mode="r")
+              for k in ("feat", "labels", "mask", "e_src", "e_dst", "pos")
+              if os.path.exists(f"{prefix}.{k}.npy")}
+    return dcfg, arrays
+
+
+def _save_graph(prefix, dcfg, arrays):
+    with open(prefix + ".json", "w") as f:
+        json.dump(dataclasses.asdict(dcfg), f)
+    for k, v in arrays.items():
+        np.save(f"{prefix}.{k}.npy", v)
+
+
+def zoo_dist_rank(mesh, dev, shard_dir) -> list:
+    """Each arch at its ogb_products width on its cut graph: the four-rank
+    loss and every gradient in float32, TF32 off, against the unsharded
+    `loss_fn` the parent ran on the card; then the control, the same ranks
+    with TF32 matmuls, against the same."""
+    from repro_torch.models.gnn.distributed import local_dist_inputs, make_dist_gnn_loss
+    from repro_torch.models.param import tree_map
+
+    rows = []
+    for arch in ("pna", "egnn", "graphcast", "equiformer-v2"):
+        t = time.perf_counter()
+        ref = torch.load(os.path.join(shard_dir, f"zoo_{arch}.pt"), weights_only=False)
+        dcfg, arrays = _load_graph(os.path.join(shard_dir, f"zoo_{arch}"))
+        local = local_dist_inputs(arrays, dcfg, mesh, dev)
+        want = _flat_list(ref["grads"])
+
+        def run(tf32):
+            params = tree_map(lambda a: a.detach().to(dev).requires_grad_(), ref["params"])
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                loss, _ = make_dist_gnn_loss(arch, mesh, dcfg, ref["cfg"])(params, local)
+                loss.backward()
+                _sync(dev)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            got = {k: (torch.zeros_like(v) if v.grad is None else v.grad).cpu()
+                   for k, v in _flat_list(params).items()}
+            return float(loss.detach()), _leaf_errors(got, want)
+
+        loss, errs = run(False)
+        _, control = run(True)
+        rows.append(dict(arch=arch, loss=loss, loss_ref=ref["loss"], worst=max(errs.values()),
+                         worst_leaf=max(errs, key=errs.get), control=max(control.values()),
+                         tol=ZOO_DIST_TOL[arch], leaves=len(errs), chunks=dcfg.n_chunks,
+                         s=time.perf_counter() - t))
+        del local
+    return rows
+
+
+def gc_rank(pod, dev, rank) -> dict:
+    """`compressed_psum` over the "pod" axis, two steps with error feedback,
+    on this device's tensors and on the CPU's (the same gloo group): q and
+    the scales bit for bit, the mean and the residual compared, and the
+    mean's error against the plain mean of gradient plus residual, in
+    quantisation steps (the largest rank's scale)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compressed_psum, quantize_int8
+
+    group = pod.group("pod")
+    ef_dev = ef_cpu = None
+    steps = []
+    t = time.perf_counter()
+    for step in range(GC_STEPS):
+        g_cpu = gc_grads(step, rank)
+        g_dev = {k: v.to(dev) for k, v in g_cpu.items()}
+        res_dev = ef_dev.residual if ef_dev else {k: torch.zeros_like(v) for k, v in g_dev.items()}
+        res_cpu = ef_cpu.residual if ef_cpu else {k: torch.zeros_like(v) for k, v in g_cpu.items()}
+        row = dict(q_equal=True, scale_equal=True, mean_max_diff=0.0, residual_max_diff=0.0,
+                   err_steps=0.0)
+        plain = {}
+        for k in g_dev:
+            x_dev, x_cpu = g_dev[k] + res_dev[k], g_cpu[k] + res_cpu[k]
+            q_d, s_d = quantize_int8(x_dev)
+            q_c, s_c = quantize_int8(x_cpu)
+            row["q_equal"] &= bool(torch.equal(q_d.cpu(), q_c))
+            row["scale_equal"] &= bool(torch.equal(s_d.cpu(), s_c))
+            s_max = s_d.clone()
+            dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+            mean_x = x_dev.clone()
+            dist.all_reduce(mean_x, group=group)
+            plain[k] = (mean_x / torch.full((), float(dist.get_world_size(group)),
+                                            device=dev), s_max)
+        synced_dev, ef_dev = compressed_psum(g_dev, group, ef_dev)
+        synced_cpu, ef_cpu = compressed_psum(g_cpu, group, ef_cpu)
+        for k in g_dev:
+            row["mean_max_diff"] = max(row["mean_max_diff"], float(
+                (synced_dev[k].cpu() - synced_cpu[k]).abs().max()))
+            row["residual_max_diff"] = max(row["residual_max_diff"], float(
+                (ef_dev.residual[k].cpu() - ef_cpu.residual[k]).abs().max()))
+            mean_x, s_max = plain[k]
+            row["err_steps"] = max(row["err_steps"], float(
+                (synced_dev[k] - mean_x).abs().max() / s_max))
+        steps.append(row)
+    return dict(steps=steps, s=time.perf_counter() - t,
+                elements=sum(int(np.prod(s)) for s in GC_LEAVES.values()))
+
+
+def plan_four_ranks(n_nodes, dst, d_feat, n_out):
+    """`plan_dist_graph` at the (2, 2) mesh for D times the busiest owner's
+    edges, so that every rank's edges fit its padded share (plan_dist_graph
+    assumes ceil(E / D) a rank); (the plan, the busiest owner's edges)."""
+    from repro_torch.models.gnn.distributed import plan_dist_graph
+
+    busiest = int(np.bincount(dst % SHARD_WORLD, minlength=SHARD_WORLD).max())
+    return plan_dist_graph(n_nodes, busiest * SHARD_WORLD, {"data": 2, "model": 2},
+                           d_feat=d_feat, n_out=n_out), busiest
+
+
+def products_graph(device, shard_dir):
+    """Phase 6's synthetic ogb_products graph (`synthetic_edges`, seed 0: its
+    power-law destinations) cut by PRODUCTS_CUT in nodes and edges, its
+    padded edges left out, sources drawn uniformly; features and labels at
+    ogb_products' widths. `plan_dist_graph` gives every rank ceil(E / D)
+    edges rounded up to a chunk, and `prepare_dist_inputs` refuses a rank
+    past that, as the reference's asserts: the hubs put one owner 26,373
+    edges past it at full size (numpy). So the four ranks' layout is
+    planned for D times the busiest owner's edges. Its inputs go to files
+    under `shard_dir` once, for the ranks to map; the world of one's are
+    returned."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models.gnn.distributed import plan_dist_graph, prepare_dist_inputs
+
+    t = time.perf_counter()
+    d = GNN_SHAPES["ogb_products"]
+    N, E = d["n_nodes"] // PRODUCTS_CUT, d["n_edges"] // PRODUCTS_CUT
+    g = torch.Generator(device=device).manual_seed(0)
+    dst = synthetic_edges(N, E, g, device)
+    src = torch.randint(0, N, (E,), generator=g, device=device, dtype=torch.int32)
+    keep = dst >= 0
+    src, dst = src[keep].cpu().numpy(), dst[keep].cpu().numpy()
+    feats = torch.randn(N, d["d_feat"], generator=g, device=device).cpu().numpy()
+    labels = torch.randint(0, d["n_out"], (N,), generator=g, device=device,
+                           dtype=torch.int32).cpu().numpy()
+    made_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dcfg4, busiest = plan_four_ranks(N, dst, d["d_feat"], d["n_out"])
+    dcfg1 = plan_dist_graph(N, src.size, {"data": 1, "model": 1}, d_feat=d["d_feat"],
+                            n_out=d["n_out"])
+    _save_graph(os.path.join(shard_dir, "products"), dcfg4,
+                prepare_dist_inputs(dcfg4, src, dst, feats, labels))
+    one = prepare_dist_inputs(dcfg1, src, dst, feats, labels)
+    log(f"[sharded] PNA graph: ogb_products' {d['n_nodes']} nodes and {d['n_edges']} edges / "
+        f"{PRODUCTS_CUT}: {N} nodes, {src.size} edges ({E - src.size} padded ones left out; "
+        f"the busiest of 4 owners {busiest}, the mean {src.size / SHARD_WORLD:.0f}), "
+        f"d_feat {d['d_feat']}, {d['n_out']} classes; made on the card in {made_s:.1f} s, laid "
+        f"out for 4 ranks (written once) and for 1 in {time.perf_counter() - t:.1f} s; at 4 "
+        f"ranks {dcfg4.n_chunks} chunks of {dcfg4.edge_chunk} edges a rank, gather capacity "
+        f"{dcfg4.gather_capacity}")
+    return dict(nodes=N, edges=int(src.size), dcfg1=dcfg1, one=one, chunks4=dcfg4.n_chunks,
+                edge_chunk=dcfg4.edge_chunk, gather_capacity4=dcfg4.gather_capacity)
+
+
+ZOO_MODULES = {"pna": "pna", "egnn": "egnn", "graphcast": "graphcast",
+               "equiformer-v2": "equiformer_v2"}
+
+
+def zoo_dist_refs(device, shard_dir) -> list:
+    """The four archs at their ogb_products widths (d_feat 100, 47 classes,
+    positions for EGNN and EquiformerV2) on their cut graphs (ZOO_DIST_GRAPH;
+    ZOO_DIST_ER for ZOO_DIST_ON_ER), parameters drawn on the CPU from seed 0
+    by the reference's rule (GraphCast's processor output weights scaled,
+    as the note at ZOO_DIST_GRAPH says): the unsharded `loss_fn` and every gradient on
+    the card in float32, TF32 off, saved with the four-rank inputs."""
+    import importlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.graph.csr import csr_to_edge_index
+    from repro_torch.graph.generators import erdos_renyi_graph, powerlaw_graph
+    from repro_torch.models.gnn.distributed import prepare_dist_inputs
+    from repro_torch.models.param import init_params, tree_map
+
+    d = GNN_SHAPES["ogb_products"]
+    rows = []
+    for arch, name in ZOO_MODULES.items():
+        t = time.perf_counter()
+        gr = (erdos_renyi_graph(**ZOO_DIST_ER) if arch in ZOO_DIST_ON_ER
+              else powerlaw_graph(**ZOO_DIST_GRAPH))
+        src, dst = csr_to_edge_index(gr)
+        rng = np.random.default_rng(0)
+        feats = rng.standard_normal((gr.n, d["d_feat"])).astype(np.float32)
+        labels = rng.integers(0, d["n_out"], gr.n).astype(np.int32)
+        pos = rng.standard_normal((gr.n, 3)).astype(np.float32)
+        mod = importlib.import_module(f"repro_torch.models.gnn.{name}")
+        cfg = get_arch(arch).model_cfg("ogb_products")
+        params = init_params(mod.param_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+        if arch == "graphcast":
+            for lp in params["processor"]:
+                for mlp in lp.values():
+                    mlp["w2"] = mlp["w2"] / np.sqrt(cfg.n_layers)
+        p = tree_map(lambda a: a.detach().to(device).requires_grad_(), params)
+        batch = {"node_feat": torch.from_numpy(feats).to(device),
+                 "src": torch.from_numpy(src).to(device), "dst": torch.from_numpy(dst).to(device),
+                 "labels": torch.from_numpy(labels).to(device),
+                 "node_pos": torch.from_numpy(pos).to(device)}
+        loss, _ = mod.loss_fn(p, batch, cfg)
+        loss.backward()
+        grads = tree_map(lambda a: (torch.zeros_like(a) if a.grad is None else a.grad).cpu(), p)
+        dcfg, _ = plan_four_ranks(gr.n, dst, cfg.d_in, cfg.n_out)
+        needs_pos = arch in ("egnn", "equiformer-v2")
+        _save_graph(os.path.join(shard_dir, f"zoo_{arch}"), dcfg,
+                    prepare_dist_inputs(dcfg, src, dst, feats, labels,
+                                        pos=pos if needs_pos else None))
+        torch.save(dict(params=params, grads=grads, loss=float(loss.detach()), cfg=cfg),
+                   os.path.join(shard_dir, f"zoo_{arch}.pt"))
+        rows.append(dict(arch=arch, loss=float(loss.detach()), s=time.perf_counter() - t,
+                         nodes=gr.n, edges=int(src.size),
+                         graph=("erdos_renyi_graph({n}, {avg_degree})".format(**ZOO_DIST_ER)
+                                if arch in ZOO_DIST_ON_ER
+                                else "powerlaw_graph({n}, {m})".format(**ZOO_DIST_GRAPH)),
+                         params=sum(int(a.numel()) for a in _flat_list(params).values())))
+        del p, loss, grads, batch
+    return rows
+
+
+def ep_prefill_ref(device):
+    """The world of one's prefill of the expert-parallel prefill's model
+    (the same draw), and the model's own sensitivity: two prefills whose
+    input moved by an ulp (`perturbed_prefill`)."""
+    cfg, full_depth = ep_prefill_cfg()
+    model = draw_lm(cfg, device, full_depth)
+    tokens = ep_prefill_tokens(cfg, device)
+    last, kvs = model.prefill_forward(tokens)
+    del kvs
+    moved = [perturbed_prefill(model, tokens, seed)["rel_l2"] for seed in (1, 2)]
+    del model
+    return last.float().cpu(), moved
+
+
+def world_of_one(device, shard_dir, products) -> dict:
+    """A world of one on the device's own backend (NCCL on the card): the
+    expert-parallel layer at a (1, 1) mesh in both regimes, forward and
+    backward (every collective of `collectives` on NCCL: all_reduce,
+    all_gather, all_to_all), and the PNA loss over the cut ogb_products
+    graph laid out for one rank (its gathers' all_to_all)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import pna as pna_config
+    from repro_torch.distributed.mesh import init_mesh
+    from repro_torch.models.gnn import pna
+    from repro_torch.models.gnn.distributed import local_dist_inputs, make_dist_gnn_loss
+    from repro_torch.models.param import init_params, tree_map
+
+    store = os.path.join(shard_dir, "one_store")
+    mesh, dev = init_mesh((1, 1), ("data", "model"), device, store=dist.FileStore(store, 1),
+                          rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        mc, full = moe_layer_full(dev)
+        layer = [ep_layer_case(full, mc, mesh, (1, 1), T, None, dev) for T in MOE_EP_TOKENS]
+        del full
+        cfg = pna_config.model_cfg("ogb_products")
+        params = tree_map(lambda a: a.to(dev), init_params(
+            pna.param_specs(cfg), torch.Generator().manual_seed(0), "cpu"))
+        dcfg = products["dcfg1"]
+        local = local_dist_inputs(products.pop("one"), dcfg, mesh, dev)
+        with torch.no_grad():
+            _sync(dev)
+            t = time.perf_counter()
+            loss = float(make_dist_gnn_loss("pna", mesh, dcfg, cfg)(params, local)[0])
+            pna_s = time.perf_counter() - t
+        del local
+    finally:
+        dist.destroy_process_group()
+    return dict(backend=backend, moe_layer=layer, pna_loss=loss, pna_s=pna_s,
+                pna_chunks=dcfg.n_chunks)
+
+
+def sharded_paths(device):
+    """Phase 13: the sharded paths, as four gloo ranks on the one card.
+
+    First, in this process: the cut ogb_products graph for PNA
+    (`products_graph`), the four archs' unsharded losses and gradients on
+    the cut graph (`zoo_dist_refs`), the world of one's prefill of the
+    expert-parallel model (`ep_prefill_ref`), then a world of one over
+    NCCL (`world_of_one`: the expert-parallel layer and the PNA loss, so
+    that NCCL's branch of each collective runs on the card). Then four
+    ranks, spawned once, gloo on cuda:0 (NCCL refuses two ranks on one
+    device), run `sharded_rank`. Held: gloo's results on CUDA tensors; each
+    expert-parallel layer case's output and every gradient within
+    MOE_EP_TOL of the single-device path's (drop-free at the busiest
+    expert's capacity, and at the config's factor); the prefill's logits
+    on every rank within EP_PREFILL_TOL of the world of one's, with
+    EP_PREFILL_LAYERS flash launches a rank; the PNA loss within
+    DIST_LOSS_RTOL of the world of one's; each arch's loss and gradients
+    against the unsharded loss; compressed_psum's payloads and scales equal
+    the CPU's and its mean within one quantisation step of the plain mean.
+    A rank that fails or hangs fails the phase. Returns (figures, the
+    ranks' flash launches in the prefill)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shard_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), SHARD_DIR)
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    os.makedirs(shard_dir)
+    _empty_cache(device)
+    with no_tf32():
+        products = products_graph(device, shard_dir)
+        zoo_ref = zoo_dist_refs(device, shard_dir)
+        t = time.perf_counter()
+        last_ref, moved = ep_prefill_ref(device)
+        prefill_ref_s = time.perf_counter() - t
+        one = world_of_one(device, shard_dir, products)
+    _empty_cache(device)
+    parent_gb = torch.cuda.memory_reserved(device) / 1e9 if device.type == "cuda" else 0.0
+    setup_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    ranks = spawn_ranks(sharded_rank, SHARD_WORLD, (shard_dir, device.type), SHARD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t
+    shutil.rmtree(shard_dir, ignore_errors=True)
+
+    r0 = ranks[0]
+    log(f"[sharded] {SHARD_WORLD} ranks, gloo on {r0['route']['tensors']} tensors: "
+        f"all_to_all_single, all_gather and all_reduce taken by gloo as they are, checked on "
+        f"every rank; the port stages nothing through host memory; ranks up in "
+        f"{max(r['start_s'] for r in ranks):.1f} s")
+    log(f"[sharded] world of one over {one['backend']}: expert-parallel layer " +
+        "; ".join(f"{c['tokens_a_shard']} tokens ({c['regime']}, capacity {c['capacity']}) worst "
+                  f"{c['worst']:.3g} ({c['worst_leaf']})" for c in one["moe_layer"]) +
+        f"; PNA loss {one['pna_loss']:.7f} over {one['pna_chunks']} chunks a layer in "
+        f"{one['pna_s']:.1f} s")
+    for c in one["moe_layer"]:
+        if not (c["worst"] <= MOE_EP_TOL and c["finite"]):
+            raise AssertionError(f"world of one: expert-parallel layer off: {c}")
+
+    for i, c in enumerate(r0["moe_layer"]):
+        worst = max(r["moe_layer"][i]["worst"] for r in ranks)
+        log(f"[sharded] expert-parallel layer, mesh {tuple(c['mesh'])}, {c['tokens_a_shard']} "
+            f"tokens a data shard ({c['regime']}), capacity {c['capacity']} "
+            f"({'factor ' + str(c['capacity_factor']) if c['capacity_factor'] else 'drop-free'}), "
+            f"dropped {c['dropped_share']:.4f}: output and every gradient vs one device, worst "
+            f"over ranks {worst:.3g} of a leaf's max (tol {MOE_EP_TOL})")
+        for r in ranks:
+            rc = r["moe_layer"][i]
+            if not (rc["worst"] <= MOE_EP_TOL and rc["finite"]):
+                raise AssertionError(f"expert-parallel layer off on a rank: {rc}")
+
+    cfg, full_depth = ep_prefill_cfg()
+    errs = [rel_l2(torch.from_numpy(r["prefill"]["last"]), last_ref) for r in ranks]
+    pf = [r["prefill"] for r in ranks]
+    log(f"[sharded] expert-parallel prefill: {cfg.name} at full width cut to {cfg.n_layers} of "
+        f"{full_depth} layers (drawn at {full_depth}'s scale), float32, TF32 off, 1 x "
+        f"{EP_PREFILL_TOKENS} tokens, drop-free, mesh (1, 4): {cfg.n_experts_padded // 4} "
+        f"experts a rank; last logits vs the world of one's prefill ({prefill_ref_s:.1f} s), "
+        f"relative L2 by rank " + " ".join(f"{e:.3g}" for e in errs) + f" (tol "
+        f"{EP_PREFILL_TOL}; the model's own, input moved an ulp: " +
+        " ".join(f"{m:.3g}" for m in moved) + "); flash launches by rank (wrapper count) " +
+        " ".join(str(p["flash_launches"]) for p in pf) + ", in a profile " +
+        " ".join(str(p["flash_profiled"]) for p in pf) + "; prefill " +
+        " ".join(f"{p['prefill_s']:.3f}" for p in pf) + " s by rank; card memory with every "
+        f"rank's model resident: {pf[0]['memory_used']}")
+    for e, p in zip(errs, pf):
+        if not (p["finite"] and e <= EP_PREFILL_TOL):
+            raise AssertionError(f"expert-parallel prefill off: {errs}")
+        if p["flash_launches"] != cfg.n_layers or set(p["launches"]) != {"flash_attention"}:
+            raise AssertionError(f"expert-parallel prefill launched {p['launches']}, expected "
+                                 f"{cfg.n_layers} flash_attention")
+
+    pn = [r["pna"] for r in ranks]
+    loss4 = pn[0]["loss"]
+    pna_err = abs(loss4 - one["pna_loss"]) / abs(one["pna_loss"])
+    log(f"[sharded] PNA (4 layers, d 75) forward over {SHARD_WORLD} ranks on the cut graph "
+        f"({products['nodes']} nodes, {products['edges']} edges; {pn[0]['chunks']} chunks of "
+        f"{pn[0]['edge_chunk']} edges a rank, capacity {pn[0]['gather_capacity']}): loss "
+        f"{loss4:.7f} vs the world of one's {one['pna_loss']:.7f}, relative {pna_err:.3g} (tol "
+        f"{DIST_LOSS_RTOL}); forward " + " ".join(f"{p['forward_s']:.1f}" for p in pn) +
+        " s by rank; unserved gather requests a layer by rank " +
+        " ".join(f"{p['unserved_a_layer']} of {p['requests_a_layer']}" for p in pn) +
+        " (the same each of the 4 layers; dropped silently, as the reference drops them)")
+    if not (len({p["loss"] for p in pn}) == 1 and pna_err <= DIST_LOSS_RTOL):
+        raise AssertionError(f"PNA loss over {SHARD_WORLD} ranks {[p['loss'] for p in pn]} vs "
+                             f"{one['pna_loss']}")
+
+    for i, ref in enumerate(zoo_ref):
+        rows = [r["zoo"][i] for r in ranks]
+        worst = max(x["worst"] for x in rows)
+        control = min(x["control"] for x in rows)
+        loss_err = max(abs(x["loss"] - x["loss_ref"]) / abs(x["loss_ref"]) for x in rows)
+        log(f"[sharded] {ref['arch']} at ogb_products' width ({ref['params']} parameters) on "
+            f"{ref['graph']} ({ref['edges']} edges), {SHARD_WORLD} ranks vs the unsharded "
+            f"loss_fn on the card, float32 on both, TF32 off: loss {rows[0]['loss']:.7f} "
+            f"(unsharded {ref['loss']:.7f}, relative {loss_err:.3g}, tol {DIST_LOSS_RTOL}), every "
+            f"gradient within {worst:.3g} of its leaf's max (tol {rows[0]['tol']}; worst "
+            f"{rows[0]['worst_leaf']}), {rows[0]['leaves']} leaves; the control, the ranks with "
+            f"TF32 matmuls: {control:.3g} at least (must exceed the tol)")
+        if not (worst <= rows[0]["tol"] < control and loss_err <= DIST_LOSS_RTOL):
+            raise AssertionError(f"{ref['arch']}: sharded vs unsharded off: {rows}")
+
+    gc = [r["compression"] for r in ranks]
+    for s in range(GC_STEPS):
+        st = [g["steps"][s] for g in gc]
+        err = max(x["err_steps"] for x in st)
+        log(f"[sharded] compressed_psum over a pod axis of {SHARD_WORLD}, step {s}, "
+            f"{gc[0]['elements']} elements at Qwen3-4B's shapes: int8 payloads equal the CPU's "
+            f"{all(x['q_equal'] for x in st)}, scales {all(x['scale_equal'] for x in st)}; "
+            f"mean vs the CPU's max diff {max(x['mean_max_diff'] for x in st):.3g}, residual "
+            f"{max(x['residual_max_diff'] for x in st):.3g}; mean vs the plain mean "
+            f"{err:.3f} quantisation steps")
+        if not (all(x["q_equal"] and x["scale_equal"] for x in st) and err <= 1.0):
+            raise AssertionError(f"compressed_psum off at step {s}: {st}")
+
+    peak = sum(r.get("peak_reserved_gb", 0.0) for r in ranks)
+    wall = time.perf_counter() - t0
+    log(f"[sharded] phase wall {wall:.1f} s (this process's set-up and world of one "
+        f"{setup_s:.1f} s, the ranks {ranks_s:.1f} s: " +
+        " ".join(f"{r['wall_s']:.1f}" for r in ranks) + " s by rank); peak memory by rank "
+        "(allocated / reserved GB) " +
+        " ".join(f"{r.get('peak_allocated_gb', 0):.2f}/{r.get('peak_reserved_gb', 0):.2f}"
+                 for r in ranks) + f"; the ranks' reserved summed {peak:.2f} GB, with this "
+        f"process's {parent_gb:.2f} GB {peak + parent_gb:.2f} GB, and a CUDA context a process "
+        "besides (not counted by torch)")
+    n_flash = sum(p["flash_launches"] for p in pf)
+    figures = dict(
+        route=r0["route"], world_of_one=one, moe_layer=[r["moe_layer"] for r in ranks],
+        prefill=dict(rel_l2=errs, tol=EP_PREFILL_TOL, input_moved=moved,
+                     flash_launches=[p["flash_launches"] for p in pf],
+                     flash_profiled=[p["flash_profiled"] for p in pf],
+                     prefill_s=[p["prefill_s"] for p in pf], memory_used=pf[0]["memory_used"]),
+        pna=dict(nodes=products["nodes"], edges=products["edges"], cut=PRODUCTS_CUT,
+                 loss=loss4, loss_one=one["pna_loss"], rel=pna_err, ranks=pn),
+        zoo=[[r["zoo"][i] for r in ranks] for i in range(len(zoo_ref))],
+        compression=gc, wall_s=wall, setup_s=setup_s, ranks_s=ranks_s,
+        rank_walls=[r["wall_s"] for r in ranks],
+        peak_reserved_gb=[r.get("peak_reserved_gb") for r in ranks],
+        peak_allocated_gb=[r.get("peak_allocated_gb") for r in ranks],
+        parent_reserved_gb=parent_gb)
+    return figures, n_flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4628,6 +5508,10 @@ def main() -> int:
     phase_done("grouting")
     planning = planning_and_examples(device, lm, train, zoo)
     phase_done("planning and examples")
+    sharded, n_sharded_flash = sharded_paths(device)
+    # and the expert-parallel prefill's, summed over its four ranks
+    kernels["flash_attention"]["launches"] += n_sharded_flash
+    phase_done("sharded paths")
 
     log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))
     log(json.dumps({"routing": routing}))
@@ -4639,6 +5523,7 @@ def main() -> int:
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"grouting": grouting}))
     log(json.dumps({"planning": planning}))
+    log(json.dumps({"sharded": sharded}))
     log(smi)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,10 +26,11 @@ import torch
 from repro_torch.distributed.mesh_utils import DEFAULT_RULES, resolve_pspec, set_mesh_rules
 from repro_torch.models.param import abstract_params, param_count, param_pspecs
 
-# why a cell's step is planned but not counted: the sharded execution it
-# needs (graph partitions over the mesh, collectives) is not ported
-FOUR_CARD_ITEM = ("needs models/gnn/distributed.py, the sharded full-graph step "
-                  "(ROADMAP Queue 1 item 3, four cards)")
+# why a cell's step is planned but not counted: the sharded full-graph step
+# (models/gnn/distributed.py) runs over a process group, and counting its
+# collectives on meta tensors is not ported
+FOUR_CARD_ITEM = ("needs a sharded step's collectives counted on meta tensors "
+                  "(models/gnn/distributed.py runs over a process group; ROADMAP Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,9 +23,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives
 from repro_torch.graph.csr import PaddedAdjacency
 from repro_torch.graph.partition import splitmix64
 
@@ -142,10 +142,9 @@ def bucket_by_owner(
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     """Row s of `x` (S, ...) goes to the group's rank s; row s of the
-    result came from it (the reference's tiled all_to_all over axis 0)."""
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
+    result came from it (the reference's tiled all_to_all over axis 0). A
+    float payload's gradient goes back to the rank that sent the row."""
+    return collectives.all_to_all(x, group)
 
 
 def sharded_multi_read(
@@ -202,7 +201,10 @@ def sharded_feature_gather(
     owner(r) = r % n_shards, local slot r // n_shards.
 
     ids: (M,) int32 (-1 padded); local_feat: (rows_per_shard, F) this
-    rank's rows. Returns (features (M, F), served (M,) bool)."""
+    rank's rows. Returns (features (M, F), served (M,) bool).
+    Differentiable in local_feat: a fetched row's gradient goes back to the
+    rank that owns it (the reverse exchange), as the reference's all_to_all
+    transposes."""
     valid = ids >= 0
     owners = torch.where(valid, ids % n_shards, 0).to(torch.int32)
     buckets, slot = bucket_by_owner(ids, owners, n_shards, capacity)

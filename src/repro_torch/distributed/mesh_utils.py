@@ -28,9 +28,11 @@ Rules used by the assigned archs:
   storage -> "model"             gRouting storage shards / recsys vocab rows
   proc    -> "data"              gRouting query processors
 
-The reference's `shard_constraint` (a sharding constraint on an activation
-inside a sharded step) has no counterpart yet: the port has no sharded
-step on several cards.
+`shard_constraint` is the reference's sharding constraint on an activation:
+it resolves the spec (so a spec that does not fit raises) and returns the
+tensor unchanged, since the reference's constraint changes a layout, never
+a value, and the port's sharded code slices explicitly. `local_shard` is a
+shard_map `in_spec`'s counterpart: a rank's block of a global tensor.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import dataclasses
 import math
 import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
 
 AxisName = Union[str, Tuple[str, ...], None]
 Spec = Tuple[AxisName, ...]
@@ -155,6 +159,39 @@ def resolve_pspec(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
         used.update(mapped_t)
         parts.append(mapped_t if len(mapped_t) > 1 else mapped_t[0])
     return tuple(parts)
+
+
+def shard_constraint(x, logical_axes: Sequence[Optional[str]]):
+    """The reference's `with_sharding_constraint` by logical axes: x itself.
+    Under rules the spec is resolved against x's shape first, and a spec
+    longer than x's dims raises, as the reference's does."""
+    lr = current_rules()
+    if lr is None:
+        return x
+    if len(logical_axes) > len(x.shape):
+        raise ValueError(f"a spec of {len(logical_axes)} axes for a tensor of shape "
+                         f"{tuple(x.shape)}")
+    resolve_pspec(logical_axes, x.shape, lr)
+    return x
+
+
+def local_shard(x, spec: Spec, mesh):
+    """This rank's block of the global tensor x under `spec` (one entry a
+    leading dim: None, an axis name or a tuple of axes) on a `ProcessMesh`:
+    along each sharded dim, block `mesh.axis_index(entry)` of
+    `mesh.axis_size(entry)` equal blocks. A copy, so the global tensor can
+    be freed."""
+    if len(spec) > x.dim():
+        raise ValueError(f"a spec of {len(spec)} entries for a tensor of shape {tuple(x.shape)}")
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = mesh.axis_size(entry)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways ({entry})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, mesh.axis_index(entry) * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def shards(spec: Spec, mesh) -> int:

@@ -6,7 +6,9 @@ reference's `models/gnn/message_passing.py`.
 `use_pallas=False`. `degree` and `segment_softmax` use plain segment
 reductions, as the reference's call `jax.ops.segment_*` directly. `rows`
 gathers node rows for edges, as the zoo's models do. `shard_graph_batch`
-(sharding constraints) comes with distributed GNNs.
+puts the reference's sharding constraints on a batch
+(`distributed.mesh_utils.shard_constraint`: the spec resolved, the values
+unchanged).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.distributed.mesh_utils import shard_constraint
 from repro_torch.kernels import ops, ref
 
 
@@ -75,3 +78,16 @@ def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Te
     ex = torch.where(ok, torch.exp(scores - rows(smax, gather)), 0.0)
     denom = ref.segment_sum_ref(ex, dst, n)
     return ex / torch.clamp(rows(denom, gather), min=1e-9)
+
+
+def shard_graph_batch(batch: dict) -> dict:
+    """Apply logical sharding constraints to a GNN batch: node arrays over
+    "nodes", edge arrays over "edges"."""
+    out = dict(batch)
+    for k in ("node_feat", "node_pos"):
+        if k in out:
+            out[k] = shard_constraint(out[k], ("nodes", None))
+    for k in ("src", "dst"):
+        if k in out:
+            out[k] = shard_constraint(out[k], ("edges",))
+    return out

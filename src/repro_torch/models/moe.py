@@ -29,8 +29,15 @@ contributions of a token are summed in k order in the output dtype, as
 the reference's scatter-add does on the CPU; `index_add_` on CUDA would
 add them by atomics, in another order from run to run.
 
-The reference's expert-parallel path (`_moe_ffn_shard_map`, under a mesh
-with a "model" axis) is not ported.
+Expert parallelism (`moe_ffn_expert_parallel`, the reference's
+`_moe_ffn_shard_map`): under rules (`set_mesh_rules`) whose mesh is a
+`ProcessMesh` with a "model" axis above 1, `moe_routed` (and with it
+`moe_ffn` and the `MoE` module) takes that path, as the reference's
+`moe_ffn` does. Every argument is then this rank's block, as in a shard_map
+body: x its data shard's tokens, the parameters its shards
+(`moe_local_params`). Activations are replicated along "model": each model
+rank routes its tokens redundantly, scatters only those bound for its
+E_padded / n_model resident experts, and one psum over "model" combines.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.dispatch import _rank_within
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh_utils import current_rules, local_shard, mesh_axes
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec
 
@@ -88,6 +97,15 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 
 class Routing(NamedTuple):
+    """One layer's routing. Under expert parallelism it is this rank's: T
+    counts the tokens it routed (its data shard's, or every data shard's in
+    the weight-stationary regime), and `probs`, `idx`, `gates`, `rank` and
+    `keep` are the same on every model rank (so the per-layer checks of
+    drops, the busiest expert and ties read them as on one device), while
+    `dest_e` / `dest_c` address the rank's resident experts (E_padded /
+    n_model rows, the dump row past them) and `aux` holds the layer's
+    load-balance loss, averaged over the data axes."""
+
     probs: torch.Tensor  # (T, E) float32, subnormals flushed to 0
     idx: torch.Tensor  # (T, k) int64 experts, by probability, ties to the lower index
     gates: torch.Tensor  # (T, k) float32, renormalised over the k
@@ -96,6 +114,7 @@ class Routing(NamedTuple):
     dest_e: torch.Tensor  # (T k,) int64 expert row, E_padded (the dump row) if dropped
     dest_c: torch.Tensor  # (T k,) int64 slot, 0 if dropped
     capacity: int
+    aux: Optional[torch.Tensor] = None  # expert parallel only: the layer's aux loss
 
 
 def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
@@ -120,7 +139,10 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
 def aux_loss(r: Routing) -> torch.Tensor:
     """The Switch load-balance loss E * sum_e f_e p_e of one layer's routing,
     () float32; the counts are exact in float32. Only the loss reads it, so
-    serving never computes it."""
+    serving never computes it. Under expert parallelism, the loss that
+    path computed."""
+    if r.aux is not None:
+        return r.aux
     (T, E), k = r.probs.shape, r.idx.shape[1]
     me = L.div(r.probs.sum(0), float(T))
     counts = torch.zeros(E, dtype=torch.int64, device=r.probs.device)
@@ -140,7 +162,11 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
 def moe_routed(params: dict, x: torch.Tensor, cfg: MoEConfig,
                capacity: Optional[int] = None) -> Tuple[torch.Tensor, Routing]:
-    """`moe_ffn` with the layer's `Routing` in place of the aux loss."""
+    """`moe_ffn` with the layer's `Routing` in place of the aux loss. Under
+    rules whose mesh has a "model" axis above 1, the expert-parallel path."""
+    mesh = expert_parallel_mesh()
+    if mesh is not None:
+        return moe_ffn_expert_parallel(params, x, cfg, mesh, capacity)
     T, d = x.shape
     Ep, k = cfg.n_experts_padded, cfg.top_k
     r = route(params["router"], x, cfg, capacity)
@@ -166,6 +192,144 @@ def moe_routed(params: dict, x: torch.Tensor, cfg: MoEConfig,
     return out.to(x.dtype), r
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism over the mesh's "model" axis (`_moe_ffn_shard_map`)
+# ---------------------------------------------------------------------------
+
+
+def expert_parallel_mesh():
+    """The current rules' mesh where the reference's `moe_ffn` takes its
+    shard_map path (a "model" axis above 1), else None."""
+    lr = current_rules()
+    if lr is not None and mesh_axes(lr.mesh).get("model", 1) > 1:
+        return lr.mesh
+    return None
+
+
+def moe_shard_specs(cfg: MoEConfig, mesh) -> dict:
+    """The reference's shard_map `in_specs` of the parameters: experts over
+    "model", the FSDP dims over "data" where the mesh has it, the shared
+    expert's d_ff over "model"."""
+    fsdp = "data" if "data" in mesh_axes(mesh) else None
+    specs = {"router": (fsdp, None), "w_gate": ("model", fsdp, None),
+             "w_up": ("model", fsdp, None), "w_down": ("model", None, fsdp)}
+    if cfg.d_ff_shared:
+        specs["shared"] = {"w_gate": (fsdp, "model"), "w_up": (fsdp, "model"),
+                           "w_down": ("model", fsdp)}
+    return specs
+
+
+def moe_local_params(params: dict, cfg: MoEConfig, mesh) -> dict:
+    """This rank's shards of an MoE FFN's full tree (`local_shard`)."""
+    specs = moe_shard_specs(cfg, mesh)
+    out = {k: local_shard(params[k], specs[k], mesh) for k in ("router", "w_gate", "w_up",
+                                                              "w_down")}
+    if cfg.d_ff_shared:
+        out["shared"] = {k: local_shard(v, specs["shared"][k], mesh)
+                         for k, v in params["shared"].items()}
+    return out
+
+
+def _slice(x: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size)
+
+
+def moe_ffn_expert_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh,
+                            capacity: Optional[int] = None) -> Tuple[torch.Tensor, Routing]:
+    """Expert-parallel MoE on a `ProcessMesh` with a "model" axis, without a
+    token all_to_all; every rank of the mesh calls it at once.
+
+    x (T_loc, d): this data shard's tokens (data shards over "pod" and
+    "data"), the same on every model rank. `params`: this rank's shards
+    (`moe_local_params`): E_loc = E_padded / n_model resident experts, the
+    FSDP dims split over "data". Capacity is a data shard's: ceil(T_loc k
+    / E * capacity_factor) rounded up to 8. Returns (out (T_loc, d) in x's
+    dtype, this rank's `Routing` with the aux loss).
+
+    Two regimes, as the reference's: with T_loc k > 64 the weight shards are
+    all-gathered over "data" (FSDP); with T_loc k <= 64 (decode) the weights
+    stay: the tokens are gathered over "data", each rank contracts its
+    d-slice, the partial activations are psum'd, and the rank's tokens are
+    sliced back out. Inputs replicated along an axis `enter` it
+    (`collectives`), so the gradients are the reference's."""
+    axes = mesh_axes(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in axes)
+    fsdp = "data" in axes
+    n_model, n_fsdp = axes["model"], axes.get("data", 1)
+    E, Ep, k = cfg.n_experts, cfg.n_experts_padded, cfg.top_k
+    if Ep % n_model:
+        raise ValueError(f"{Ep} experts over a model axis of {n_model}")
+    E_loc = Ep // n_model
+    T_loc, d = x.shape
+    cap = capacity if capacity is not None else expert_capacity(T_loc, cfg)
+    ws = fsdp and T_loc * k <= 64  # weight-stationary (decode)
+    g_model = mesh.group("model")
+    g_fsdp = mesh.group("data") if fsdp else None
+    di = mesh.axis_index("data") if fsdp else 0
+
+    x_in = C.enter(x, g_model)
+    router = C.enter(params["router"], g_model)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if fsdp:
+        router = C.all_gather(router, g_fsdp, 0)
+    if ws:
+        x_eff, cap_eff = C.all_gather(x_in, g_fsdp, 0), cap * n_fsdp
+    else:
+        x_eff, cap_eff = x_in, cap
+        if fsdp:
+            wg, wu = C.all_gather(wg, g_fsdp, 1), C.all_gather(wu, g_fsdp, 1)
+            wd = C.all_gather(wd, g_fsdp, 2)
+    T = x_eff.shape[0]
+    r = route(router, x_eff, cfg, cap_eff)
+    aux = aux_loss(r)
+    if data_axes:
+        aux = C.pmean(aux, mesh.group(data_axes))
+    aux = C.invariant(aux, g_model)  # computed alike on every model rank
+
+    lo = mesh.axis_index("model") * E_loc
+    flat_e = r.idx.reshape(-1)
+    mine = r.keep & (flat_e >= lo) & (flat_e < lo + E_loc)
+    dest_e = torch.where(mine, flat_e - lo, E_loc)  # others to the dump row
+    dest_c = torch.where(mine, r.rank, 0)
+    slot = dest_e * cap_eff + dest_c
+    buf = x_eff.new_zeros(((E_loc + 1) * cap_eff, d))
+    buf[slot] = x_eff[:, None, :].expand(T, k, d).reshape(T * k, d)
+    buf = buf.view(E_loc + 1, cap_eff, d)[:E_loc]
+    if ws:
+        # each rank's d-slice; h and u then meet its own d-slice of w_down
+        buf = _slice(buf, 2, di, n_fsdp)
+        h = C.enter(C.psum(torch.bmm(buf, wg), g_fsdp), g_fsdp)
+        u = C.enter(C.psum(torch.bmm(buf, wu), g_fsdp), g_fsdp)
+        y = C.all_gather(torch.bmm(F.silu(h) * u, wd), g_fsdp, 2)
+    else:
+        y = torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
+    y = y.reshape(E_loc * cap_eff, d)
+
+    gate = torch.where(mine, r.gates.reshape(-1), 0.0).to(y.dtype)
+    read = dest_e.clamp(max=E_loc - 1) * cap_eff + dest_c
+    contrib = (y[read] * gate[:, None]).view(T, k, d)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    if cfg.d_ff_shared:  # d_ff split over "model"
+        sg, su, sd = (params["shared"][n] for n in ("w_gate", "w_up", "w_down"))
+        if ws:
+            xs = _slice(x_eff, 1, di, n_fsdp)
+            hs = C.enter(C.psum(xs @ sg, g_fsdp), g_fsdp)
+            us = C.enter(C.psum(xs @ su, g_fsdp), g_fsdp)
+            out = out + C.all_gather((F.silu(hs) * us) @ sd, g_fsdp, 1)
+        else:
+            if fsdp:
+                sg, su = C.all_gather(sg, g_fsdp, 0), C.all_gather(su, g_fsdp, 0)
+                sd = C.all_gather(sd, g_fsdp, 1)
+            out = out + L.swiglu(x_eff, sg, su, sd)
+    out = C.psum(out, g_model)
+    if ws:
+        out = _slice(out, 0, di, n_fsdp)
+    return out.to(x.dtype), r._replace(dest_e=dest_e, dest_c=dest_c, aux=aux)
+
+
 def _frozen(x: torch.Tensor) -> nn.Parameter:
     """As `transformer._param`: a `nn.Parameter` (a training state's leaf)
     is held as it is, any other tensor frozen."""
@@ -174,7 +338,8 @@ def _frozen(x: torch.Tensor) -> nn.Parameter:
 
 class MoE(nn.Module):
     """One layer's MoE FFN under the reference's parameter names (`router`,
-    `w_gate`, `w_up`, `w_down`, `shared.{w_gate, w_up, w_down}`)."""
+    `w_gate`, `w_up`, `w_down`, `shared.{w_gate, w_up, w_down}`). Under
+    expert parallelism it holds this rank's shards (`moe_local_params`)."""
 
     def __init__(self, p: dict, cfg: MoEConfig):
         super().__init__()

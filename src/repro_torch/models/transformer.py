@@ -42,7 +42,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_VALUE
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, MoEConfig, Routing, aux_loss, moe_param_specs
+from repro_torch.models.moe import MoE, MoEConfig, Routing, aux_loss, moe_local_params, \
+    moe_param_specs
 from repro_torch.models.param import ParamSpec, init_params, tree_map
 
 
@@ -191,6 +192,18 @@ def stack_layers(tree: dict, cfg: LMConfig) -> dict:
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
+
+
+def expert_parallel_params(tree: dict, cfg: LMConfig, mesh) -> dict:
+    """The port's tree (one tree a layer) with each MoE FFN cut to this
+    rank's shards (`moe.moe_local_params`); every other leaf stays whole,
+    replicated on every rank as the reference's attention is along
+    "model". A `Transformer` of it runs under `set_mesh_rules(mesh)`."""
+    if not cfg.moe:
+        return tree
+    moe = cfg.moe_cfg()
+    layers = [dict(lp, ffn=moe_local_params(lp["ffn"], moe, mesh)) for lp in tree["layers"]]
+    return dict(tree, layers=layers)
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:

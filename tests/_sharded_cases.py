@@ -1,0 +1,188 @@
+"""The cases of the port's sharded-path tests (`test_torch_moe_distributed.py`,
+`test_torch_dist_gnn.py`, `test_torch_grad_compression.py`), shared by the
+reference runner (`_sharded_ref.py`, JAX on 4 host devices) and the port's
+workers (`_torch_sharded.py`, 4 gloo ranks): numpy and plain values only.
+
+Parameters are drawn here with numpy, leaf by leaf from a seed and the
+leaf's path, so both sides start from the same values without waiting on
+each other: a test file starts the reference (`start_reference`) and runs
+the port's ranks while it computes.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+REF_TIMEOUT_S = 300
+
+WORLD = 4
+AXES = ("data", "model")
+
+# --- expert-parallel MoE: tests/test_moe_distributed.py's config ---------
+MOE = dict(d_model=16, n_experts=6, n_experts_padded=8, top_k=2, d_ff_expert=32,
+           d_ff_shared=24, capacity_factor=8.0)
+MOE_SHAPES = {
+    "router": (16, 6), "w_gate": (8, 16, 32), "w_up": (8, 16, 32), "w_down": (8, 32, 16),
+    "shared/w_gate": (16, 24), "shared/w_up": (16, 24), "shared/w_down": (24, 16),
+}
+AUX_WEIGHT = 0.3  # loss = sum(out * W) + AUX_WEIGHT * aux
+# name -> (mesh (data, model), tokens T, capacity a data shard (None: the
+# config's factor), capacity factor). T_loc k <= 64 is the weight-
+# stationary regime: T 16 at both meshes; T 256 gathers the weights.
+MOE_CASES = {
+    "ws-2x2": ((2, 2), 16, 16, 8.0),
+    "gather-2x2": ((2, 2), 256, 256, 8.0),
+    "ws-1x4": ((1, 4), 16, 16, 8.0),
+    "gather-1x4": ((1, 4), 256, 256, 8.0),
+    "drops-ws-2x2": ((2, 2), 16, 2, 8.0),
+    "drops-gather-2x2": ((2, 2), 256, 24, 8.0),
+    "factor-1x4": ((1, 4), 256, None, 1.25),
+}
+DROP_FREE = ("ws-2x2", "gather-2x2", "ws-1x4", "gather-1x4", "factor-1x4")
+
+# --- distributed GNN: tests/test_distributed.py's graph at a (2, 2) mesh --
+GNN_ARCHS = ("egnn", "pna", "graphcast", "equiformer-v2")
+GNN_GRAPH = dict(n=120, m=3, seed=0)
+GNN_MESH = (2, 2)
+# name -> (arch, edge_chunk, capacity_slack): roomy, and a budget of one
+# request in four that drops some
+GNN_CASES = {a: (a, 128, 256) for a in GNN_ARCHS}
+GNN_CASES["pna-tight"] = ("pna", 128, 1)
+
+# --- gradient compression over a "pod" axis of 4 ------------------------
+GC_SHAPES = {"w": (8, 16), "b": (5,), "e": (3, 4, 6)}  # a rank's leaf
+GC_STEPS = 2
+
+
+def gnn_needs_pos(arch: str) -> bool:
+    return arch in ("egnn", "equiformer-v2")
+
+
+def draw(path: str, shape, seed: int) -> np.ndarray:
+    """One leaf, float32, from (seed, path): N(0, 1) / sqrt(fan-in) for a
+    matrix (its second-last dim), N(0, 0.1) for a vector."""
+    rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+    scale = 1.0 / np.sqrt(shape[-2]) if len(shape) >= 2 else 0.1
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """A tree of dicts and lists -> {"a/0/b": leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}{k}/"))
+    return out
+
+
+def unflatten(flat: dict, like):
+    """`flatten`'s inverse, shaped as the tree `like`."""
+    def build(node, prefix):
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+        return flat[prefix[:-1]]
+    return build(like, "")
+
+
+def draw_tree(shapes: dict, seed: int) -> dict:
+    """{path: shape} -> {path: leaf}."""
+    return {p: draw(p, s, seed) for p, s in shapes.items()}
+
+
+def moe_inputs(case: str):
+    """(params {path: leaf}, x (T, d), the loss weights W (T, d))."""
+    _, T, _, _ = MOE_CASES[case]
+    params = draw_tree(MOE_SHAPES, 1)
+    rng = np.random.default_rng([0, T])
+    x = rng.standard_normal((T, MOE["d_model"])).astype(np.float32)
+    w = rng.standard_normal((T, MOE["d_model"])).astype(np.float32)
+    return params, x, w
+
+
+def gnn_graph_inputs(d_in: int, n_out: int, n: int):
+    """tests/test_distributed.py's features, labels and positions."""
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((n, d_in)).astype(np.float32)
+    labels = rng.integers(0, n_out, n).astype(np.int32)
+    pos = rng.standard_normal((n, 3)).astype(np.float32)
+    return feats, labels, pos
+
+
+def gc_grads(step: int) -> dict:
+    """{leaf: (WORLD, *shape)}: each rank's gradients at `step`, at scales
+    that differ by rank so that the mean scale is not any rank's."""
+    rng = np.random.default_rng([5, step])
+    return {k: (rng.standard_normal((WORLD,) + s) *
+                (1.0 + np.arange(WORLD)).reshape((WORLD,) + (1,) * len(s))).astype(np.float32)
+            for k, s in GC_SHAPES.items()}
+
+
+def mesh_coords(rank: int, mesh) -> dict:
+    """{"data": i, "model": j} of a rank on a (data, model) mesh, row-major."""
+    return {"data": rank // mesh[1], "model": rank % mesh[1]}
+
+
+def block(x: np.ndarray, spec, rank: int, mesh) -> np.ndarray:
+    """Rank's block of x under a spec of axis names (None, "data", "model",
+    or ("data", "model") flattened data-major) on a (data, model) mesh."""
+    c, size = mesh_coords(rank, mesh), dict(zip(AXES, mesh))
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else entry
+        n, i = 1, 0
+        for a in names:
+            n, i = n * size[a], i * size[a] + c[a]
+        step = x.shape[dim] // n
+        x = np.take(x, np.arange(i * step, (i + 1) * step), axis=dim)
+    return x
+
+
+def start_reference(whats, out_dir):
+    """Start `_sharded_ref.py` for each group in `whats`, one process each,
+    on 4 host devices; returns a function that waits for them and returns
+    {what: the .npz's arrays}, raising with the stderr of any that failed."""
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(HERE.parent / "src"), str(HERE)]))
+    paths = {w: Path(out_dir) / f"{w.replace(':', '_')}.npz" for w in whats}
+    procs = {w: subprocess.Popen([sys.executable, str(HERE / "_sharded_ref.py"), w, str(p)],
+                                 env=env, cwd=HERE, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for w, p in paths.items()}
+
+    def finish() -> dict:
+        errors = []
+        try:
+            for w, proc in procs.items():
+                _, err = proc.communicate(timeout=REF_TIMEOUT_S)
+                if proc.returncode:
+                    errors.append(f"{w}:\n{err[-3000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        out = {}
+        for w, p in paths.items():
+            with np.load(p) as z:
+                out[w] = {k: z[k] for k in z.files}
+        return out
+
+    return finish

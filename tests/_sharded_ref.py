@@ -1,0 +1,154 @@
+"""The reference's sharded paths on 4 host devices, for the port's tests of
+them: run as a program, it computes one group of `_sharded_cases` through
+the JAX package and writes the inputs it made and the outputs to one .npz.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/_sharded_ref.py WHAT OUT.npz
+
+WHAT: "moe" (`moe_ffn` under a mesh: `_moe_ffn_shard_map`), "gnn:ARCH" or
+"gnn:pna-tight" (`make_dist_gnn_loss`, `prepare_dist_inputs`, the gather's
+served masks), "compression" (`compressed_psum` over a "pod" axis).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.experimental.shard_map import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
+
+import _sharded_cases as C
+
+
+def mesh_of(shape, axes=C.AXES) -> Mesh:
+    k = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:k]).reshape(shape), axes)
+
+
+def moe(out: dict) -> None:
+    from repro.distributed.mesh_utils import set_mesh_rules
+    from repro.models.moe import MoEConfig, moe_ffn
+
+    for case, (shape, T, cap, factor) in C.MOE_CASES.items():
+        cfg = MoEConfig(**dict(C.MOE, capacity_factor=factor), dtype=jnp.float32)
+        flat, x, w = C.moe_inputs(case)
+        params = C.unflatten({k: jnp.asarray(v) for k, v in flat.items()},
+                             {"router": 0, "w_gate": 0, "w_up": 0, "w_down": 0,
+                              "shared": {"w_gate": 0, "w_up": 0, "w_down": 0}})
+        mesh = mesh_of(shape)
+
+        def loss(p, xx):
+            with set_mesh_rules(mesh):
+                o, aux = moe_ffn(p, xx, cfg, capacity=cap)
+            return jnp.sum(o * w) + C.AUX_WEIGHT * aux, (o, aux)
+
+        with mesh:
+            (_, (o, aux)), (gp, gx) = jax.jit(
+                jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+        out[f"{case}/out"] = np.asarray(o)
+        out[f"{case}/aux"] = np.asarray(aux)
+        out[f"{case}/grad/x"] = np.asarray(gx)
+        for k, v in C.flatten(gp).items():
+            out[f"{case}/grad/{k}"] = np.asarray(v)
+
+
+def gnn(out: dict, name: str) -> None:
+    from repro.configs import get_arch
+    from repro.core.storage import bucket_by_owner
+    from repro.graph.csr import csr_to_edge_index
+    from repro.graph.generators import powerlaw_graph
+    from repro.models.gnn import egnn, equiformer_v2, graphcast, pna
+    from repro.models.gnn.distributed import (
+        make_dist_gnn_loss, plan_dist_graph, prepare_dist_inputs,
+    )
+
+    arch, chunk, slack = C.GNN_CASES[name]
+    mod = {"egnn": egnn, "pna": pna, "graphcast": graphcast, "equiformer-v2": equiformer_v2}[arch]
+    cfg = get_arch(arch).smoke_cfg()
+    g = powerlaw_graph(**C.GNN_GRAPH)
+    src, dst = csr_to_edge_index(g)
+    feats, labels, pos = C.gnn_graph_inputs(cfg.d_in, cfg.n_out, g.n)
+    specs = C.flatten(mod.param_specs(cfg))
+    like = mod.param_specs(cfg)
+    flat = C.draw_tree({k: s.shape for k, s in specs.items()}, 0)
+    params = C.unflatten({k: jnp.asarray(v) for k, v in flat.items()}, like)
+
+    mesh = mesh_of(C.GNN_MESH)
+    dcfg = plan_dist_graph(g.n, src.size, dict(mesh.shape), d_feat=cfg.d_in, n_out=cfg.n_out,
+                           edge_chunk=chunk, capacity_slack=slack)
+    inputs = prepare_dist_inputs(dcfg, src, dst, feats, labels,
+                                 pos=pos if C.gnn_needs_pos(arch) else None)
+    loss_fn = make_dist_gnn_loss(arch, mesh, dcfg, cfg)
+    with mesh:
+        loss, grads = jax.jit(jax.value_and_grad(lambda p, i: loss_fn(p, i)[0]))(
+            params, {k: jnp.asarray(v) for k, v in inputs.items()})
+    out["loss"] = np.asarray(loss)
+    for k, v in C.flatten(grads).items():
+        out[f"grad/{k}"] = np.asarray(v)
+    for k, v in inputs.items():
+        out[f"inputs/{k}"] = v
+    # the gather's served masks, chunk by chunk, as `edge_stream` computes them
+    D, E = dcfg.n_devices, dcfg.edge_chunk
+    e_src = inputs["e_src"].reshape(D, dcfg.n_chunks, E)
+    e_dst = inputs["e_dst"].reshape(D, dcfg.n_chunks, E)
+    served = np.zeros(e_src.shape, bool)
+    for d in range(D):
+        for c in range(dcfg.n_chunks):
+            ok = (e_src[d, c] >= 0) & (e_dst[d, c] >= 0)
+            ids = jnp.where(ok, e_src[d, c], -1)
+            owners = jnp.where(ids >= 0, ids % D, 0).astype(jnp.int32)
+            _, slot = bucket_by_owner(ids, owners, D, dcfg.gather_capacity)
+            served[d, c] = ok & (np.asarray(slot) >= 0)
+    out["served"] = served
+    out["plan"] = np.array([dcfg.rows_per_shard, dcfg.edges_per_shard, dcfg.edge_chunk,
+                            dcfg.gather_capacity])
+
+
+def compression(out: dict) -> None:
+    from repro.optim.grad_compression import compressed_psum, init_error_feedback, quantize_int8
+
+    mesh = mesh_of((C.WORLD,), ("pod",))
+    spec = {k: P("pod", *([None] * (len(s) - 1))) for k, s in C.GC_SHAPES.items()}
+
+    def body(grads, residual):
+        ef = init_error_feedback(grads)._replace(residual=residual)
+        x = {k: grads[k].astype(jnp.float32) + residual[k] for k in grads}
+        qs = {k: quantize_int8(v) for k, v in x.items()}
+        synced, ef = compressed_psum(grads, "pod", ef)
+        return (synced, ef.residual, {k: q for k, (q, _) in qs.items()},
+                {k: s[None] for k, (_, s) in qs.items()})
+
+    step = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec, spec),
+                             out_specs=(spec, spec, spec, {k: P("pod") for k in spec}),
+                             check_rep=False))
+    residual = {k: jnp.zeros((C.WORLD * s[0],) + s[1:], jnp.float32)
+                for k, s in C.GC_SHAPES.items()}
+    for t in range(C.GC_STEPS):
+        grads = {k: jnp.asarray(v.reshape((-1,) + v.shape[2:])) for k, v in C.gc_grads(t).items()}
+        with mesh:
+            synced, residual, q, scale = step(grads, residual)
+        for k in C.GC_SHAPES:
+            out[f"{t}/mean/{k}"] = np.asarray(synced[k])
+            out[f"{t}/residual/{k}"] = np.asarray(residual[k])
+            out[f"{t}/q/{k}"] = np.asarray(q[k])
+            out[f"{t}/scale/{k}"] = np.asarray(scale[k])
+
+
+def main(what: str, path: str) -> None:
+    out: dict = {}
+    if what == "moe":
+        moe(out)
+    elif what.startswith("gnn:"):
+        gnn(out, what[4:])
+    elif what == "compression":
+        compression(out)
+    else:
+        raise SystemExit(f"unknown group {what!r}")
+    np.savez(path, **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -1,0 +1,254 @@
+"""The port's side of the sharded-path tests: workers that `_torch_dist.spawn`
+runs in 4 gloo ranks on the CPU, one a test file, over the cases of
+`_sharded_cases`. Spawned children import this module by name, so it
+imports torch and the port only (no JAX), and its workers are module-level
+functions. Each returns numpy arrays.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import _sharded_cases as C
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.mesh import ProcessMesh, init_mesh
+from repro_torch.distributed.mesh_utils import local_shard, set_mesh_rules
+
+MOE_TREE = {"router": 0, "w_gate": 0, "w_up": 0, "w_down": 0,
+            "shared": {"w_gate": 0, "w_up": 0, "w_down": 0}}
+
+
+def _init(store_dir: str, name: str, rank: int, shape, axes, backend=None):
+    store = dist.FileStore(os.path.join(store_dir, name), int(np.prod(shape)))
+    mesh, _ = init_mesh(shape, axes, "cpu", backend=backend, store=store, rank=rank,
+                        world_size=int(np.prod(shape)))
+    return mesh
+
+
+def _leaves(flat: dict, like) -> dict:
+    """{path: numpy} -> the tree of leaf tensors that require grad."""
+    return C.unflatten({k: torch.from_numpy(v).requires_grad_() for k, v in flat.items()}, like)
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_all(rank: int, world: int, store_dir: str) -> dict:
+    """Every MoE case on this rank: {case: {"out", "aux", "grad/..."}}, the
+    outputs and gradients of this rank's blocks; then the LM smoke config's
+    prefill and loss under expert parallelism at (1, 4)."""
+    from repro_torch.models.moe import MoEConfig, moe_ffn, moe_local_params
+
+    mesh0 = _init(store_dir, "moe", rank, (2, 2), C.AXES)
+    meshes = {(2, 2): mesh0, (1, 4): ProcessMesh((1, 4), C.AXES)}
+    out = {}
+    for case, (shape, T, cap, factor) in C.MOE_CASES.items():
+        mesh = meshes[shape]
+        cfg = MoEConfig(**dict(C.MOE, capacity_factor=factor), dtype=torch.float32)
+        flat, x, w = C.moe_inputs(case)
+        full = C.unflatten({k: torch.from_numpy(v) for k, v in flat.items()}, MOE_TREE)
+        local = {k: v.requires_grad_() for k, v in C.flatten(
+            moe_local_params(full, cfg, mesh)).items()}
+        params = C.unflatten(local, MOE_TREE)
+        tok = (("data",), None)
+        x_loc = local_shard(torch.from_numpy(x), tok, mesh).requires_grad_()
+        w_loc = local_shard(torch.from_numpy(w), tok, mesh)
+        with set_mesh_rules(mesh):
+            o, aux = moe_ffn(params, x_loc, cfg, capacity=cap)
+        (torch.sum(o * w_loc) + C.AUX_WEIGHT * aux).backward()
+        res = {"out": o.detach().numpy(), "aux": aux.detach().numpy(),
+               "grad/x": x_loc.grad.numpy()}
+        res.update({f"grad/{k}": v.grad.numpy() for k, v in local.items()})
+        out[case] = res
+    out["lm"] = _moe_lm(meshes[(1, 4)])
+    dist.destroy_process_group()
+    return out
+
+
+def moe_lm_inputs():
+    """The qwen2-moe smoke config, its parameters (port tree, drawn on the
+    CPU from seed 0) and a batch."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.models.param import init_params
+    from repro_torch.models.transformer import lm_param_specs, unstack_layers
+
+    cfg = qwen2_moe_a2_7b.smoke_cfg()
+    tree = unstack_layers(init_params(lm_param_specs(cfg), torch.Generator().manual_seed(0),
+                                      "cpu"), cfg)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    return cfg, tree, tokens, labels
+
+
+def _moe_lm(mesh) -> dict:
+    """The smoke LM with its MoE FFNs cut to this rank's shards, under the
+    mesh's rules: the prefill's logits, the loss and every leaf's gradient
+    (MoE leaves: this rank's shards)."""
+    from repro_torch.models.param import tree_map
+    from repro_torch.models.transformer import Transformer, expert_parallel_params, loss_fn
+
+    cfg, tree, tokens, labels = moe_lm_inputs()
+    local = tree_map(lambda a: torch.nn.Parameter(a.clone()),
+                     expert_parallel_params(tree, cfg, mesh))
+    with set_mesh_rules(mesh):
+        with torch.no_grad():
+            last, _ = Transformer(cfg, local, device="cpu").prefill_forward(tokens)
+        loss, parts = loss_fn(local, {"tokens": tokens, "labels": labels}, cfg)
+        loss.backward()
+    res = {"last": last.numpy(), "loss": loss.detach().numpy(),
+           "aux": parts["aux"].detach().numpy()}
+    res.update({f"grad/{k}": v.grad.numpy() for k, v in C.flatten(local).items()})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# distributed GNN
+# ---------------------------------------------------------------------------
+
+
+def gnn_params(arch: str):
+    """(the port's model config, the parameter tree of leaves requiring
+    grad, drawn as `_sharded_ref.py` draws them)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import egnn, equiformer_v2, graphcast, pna
+
+    mod = {"egnn": egnn, "pna": pna, "graphcast": graphcast, "equiformer-v2": equiformer_v2}[arch]
+    cfg = get_arch(arch).smoke_cfg()
+    specs = mod.param_specs(cfg)
+    flat = C.draw_tree({k: s.shape for k, s in C.flatten(specs).items()}, 0)
+    return cfg, _leaves(flat, specs)
+
+
+def gnn_all(rank: int, world: int, store_dir: str) -> dict:
+    """Every distributed-GNN case on this rank: the loss, every gradient,
+    the gather's served masks, and (rank 0) the prepared host arrays."""
+    from repro_torch.graph.csr import csr_to_edge_index
+    from repro_torch.graph.generators import powerlaw_graph
+    from repro_torch.models.gnn.distributed import (
+        gather_served, local_dist_inputs, make_dist_gnn_loss, plan_dist_graph,
+        prepare_dist_inputs,
+    )
+
+    mesh = _init(store_dir, "gnn", rank, C.GNN_MESH, C.AXES)
+    g = powerlaw_graph(**C.GNN_GRAPH)
+    src, dst = csr_to_edge_index(g)
+    out = {}
+    for name, (arch, chunk, slack) in C.GNN_CASES.items():
+        cfg, params = gnn_params(arch)
+        feats, labels, pos = C.gnn_graph_inputs(cfg.d_in, cfg.n_out, g.n)
+        dcfg = plan_dist_graph(g.n, src.size, mesh.shape, d_feat=cfg.d_in, n_out=cfg.n_out,
+                               edge_chunk=chunk, capacity_slack=slack)
+        inputs = prepare_dist_inputs(dcfg, src, dst, feats, labels,
+                                     pos=pos if C.gnn_needs_pos(arch) else None)
+        local = local_dist_inputs(inputs, dcfg, mesh, "cpu")
+        loss, _ = make_dist_gnn_loss(arch, mesh, dcfg, cfg)(params, local)
+        loss.backward()
+        res = {"loss": loss.detach().numpy(),
+               "served": gather_served(dcfg, local["e_src"], local["e_dst"]).numpy(),
+               "plan": np.array([dcfg.rows_per_shard, dcfg.edges_per_shard, dcfg.edge_chunk,
+                                 dcfg.gather_capacity])}
+        # a leaf no loss reads (EGNN's last phi_x) has no gradient: the reference's is 0
+        res.update({f"grad/{k}": (torch.zeros_like(v) if v.grad is None else v.grad).numpy()
+                    for k, v in C.flatten(params).items()})
+        if rank == 0:
+            res.update({f"inputs/{k}": v for k, v in inputs.items()})
+        out[name] = res
+    dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gradient compression
+# ---------------------------------------------------------------------------
+
+
+def gc_all(rank: int, world: int, store_dir: str) -> dict:
+    """`compressed_psum` over a "pod" axis of 4, two steps: this rank's q,
+    scale (of its gradients plus the carried residual), mean and residual."""
+    from repro_torch.optim import compressed_psum, quantize_int8
+
+    mesh = _init(store_dir, "gc", rank, (C.WORLD,), ("pod",))
+    group = mesh.group("pod")
+    ef, out = None, {}
+    for t in range(C.GC_STEPS):
+        grads = {k: torch.from_numpy(v[rank]) for k, v in C.gc_grads(t).items()}
+        resid = ef.residual if ef is not None else {k: torch.zeros_like(v)
+                                                   for k, v in grads.items()}
+        for k, g in grads.items():
+            q, s = quantize_int8(g.float() + resid[k])
+            out[f"{t}/q/{k}"], out[f"{t}/scale/{k}"] = q.numpy(), s.numpy()
+        synced, ef = compressed_psum(grads, group, ef)
+        for k in grads:
+            out[f"{t}/mean/{k}"] = synced[k].numpy()
+            out[f"{t}/residual/{k}"] = ef.residual[k].numpy()
+    dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives, meshes and shards
+# ---------------------------------------------------------------------------
+
+
+DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int64, torch.uint8, torch.bool)
+
+
+def collectives_all(rank: int, world: int, store_dir: str) -> dict:
+    """On a (2, 2) mesh: every collective of `collectives` over each axis and
+    the flattened pair, forward and backward, with a loss that differs by
+    rank; the raw gloo calls on every dtype the port exchanges; the axis
+    groups' ranks; `local_shard` of one tensor under several specs."""
+    mesh = _init(store_dir, "coll", rank, (2, 2), C.AXES, backend="gloo")
+    out = {"coords": np.array([mesh.axis_index("data"), mesh.axis_index("model"),
+                               mesh.axis_index(("data", "model"))]),
+           "backend": dist.get_backend()}
+    for name in ("data", "model", ("data", "model")):
+        key = name if isinstance(name, str) else "+".join(name)
+        group = mesh.group(name)
+        out[f"ranks/{key}"] = np.array(dist.get_process_group_ranks(group))
+        x = torch.arange(6, dtype=torch.float32).view(2, 3) + 10 * rank
+        w = torch.arange(6, dtype=torch.float32).view(2, 3) * (rank + 1)
+        for op, fn in (("psum", lambda t: coll.psum(t, group)),
+                       ("enter", lambda t: coll.enter(t, group)),
+                       ("pmean", lambda t: coll.pmean(t, group)),
+                       ("invariant", lambda t: coll.invariant(t, group)),
+                       ("all_gather0", lambda t: coll.all_gather(t, group, 0)),
+                       ("all_gather1", lambda t: coll.all_gather(t, group, 1))):
+            xi = x.clone().requires_grad_()
+            y = fn(xi)
+            wy = torch.arange(y.numel(), dtype=torch.float32).view(y.shape) * (rank + 1)
+            (y * wy).sum().backward()
+            out[f"{op}/{key}/y"], out[f"{op}/{key}/dx"] = y.detach().numpy(), xi.grad.numpy()
+        n = coll.group_size(group)
+        xa = (torch.arange(n * 2, dtype=torch.float32).view(n, 2) + 100 * rank).requires_grad_()
+        ya = coll.all_to_all(xa, group)
+        (ya * (torch.arange(n * 2, dtype=torch.float32).view(n, 2) + rank)).sum().backward()
+        out[f"all_to_all/{key}/y"], out[f"all_to_all/{key}/dx"] = ya.detach().numpy(), \
+            xa.grad.numpy()
+    for dt in DTYPES:  # gloo refuses none of them on CPU tensors
+        name = str(dt).split(".")[1]
+        t = (torch.arange(8) + rank).to(dt)
+        a2a = torch.empty_like(t)
+        dist.all_to_all_single(a2a, t)
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        red = t.clone()
+        if dt != torch.bool:
+            dist.all_reduce(red)
+        bc = t.clone()
+        dist.broadcast(bc, src=1)
+        out[f"raw/{name}"] = np.stack([a2a.float().numpy(), torch.cat(parts).float().numpy()[:8],
+                                       red.float().numpy(), bc.float().numpy()])
+    x = torch.arange(4 * 8 * 2, dtype=torch.float32).view(4, 8, 2)
+    for i, spec in enumerate([("data", None), (None, "model"), (("data", "model"),),
+                              ("model", "data"), (None, ("data", "model"), None)]):
+        out[f"shard/{i}"] = local_shard(x, spec, mesh).numpy()
+    dist.destroy_process_group()
+    return out
