@@ -121,7 +121,14 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      mesh, each in a subprocess; and `--list`'s cells and skips.
  13. runs the sharded paths as four gloo ranks on the one card
      (`sharded_paths`; NCCL refuses two ranks on one device): gloo's
-     collectives on CUDA tensors checked; the expert-parallel MoE layer at
+     collectives on CUDA tensors checked, float32 and bf16; the LM step on
+     a (data, model) (2, 2) mesh under LM_TRAIN_RULES (Qwen3-4B at full
+     width cut to 2 of 36 layers, one sequence of 4,096 tokens a data
+     rank): in float32 one training step's m and v, loss and grad norm,
+     and the prefill's logits against the world of one's, a TF32 control
+     above the tolerance, the flash forward and backward on each route
+     (wrapper counts and profiles); in bf16 a timed step, its peak memory
+     beside the dry run's reckoning of the same local step; the expert-parallel MoE layer at
      qwen2-moe-a2.7b's full width at meshes (1, 4) and (2, 2), 4,096 and 16
      tokens a data shard (the FSDP and weight-stationary regimes),
      drop-free and at factor 1.25, output and every gradient against the
@@ -3789,11 +3796,14 @@ def zoo_gnn_runs(device) -> list:
             lambda step: gnn_batch(step, g, feats, labels, sampler,
                                    batch_nodes=lg["batch_nodes"]))
     runs.append(dict(arch="equiformer-v2", shape="minibatch_lg", left_out=True,
-                     why="one (E, 29, 128) float32 edge tensor is 2.5 GB at 168,960 edges; "
-                         "about ten a layer kept for the backward, 12 layers: past 80 GB "
-                         "without the edge-chunked distributed path"))
-    log("[zoo] equiformer-v2 at minibatch_lg: left out (its saved edge tensors are past the "
-        "card; the reference's edge-chunked path is models/gnn/distributed.py, not ported)")
+                     why="one card's memory: one (E, 29, 128) float32 edge tensor is 2.5 GB at "
+                         "168,960 edges, and about ten a layer are kept for the backward over "
+                         "12 layers, past 80 GB; the edge-chunked path "
+                         "(models/gnn/distributed.py, ported) streams a full graph's edges "
+                         "over a mesh, not a sampled batch's on one card"))
+    log("[zoo] equiformer-v2 at minibatch_lg: left out (one card's memory: about ten (E, 29, "
+        "128) float32 edge tensors of 2.5 GB are kept a layer for the backward, over 12 "
+        "layers)")
     runs.append(dict(host_graph=dict(nodes=g.n, edges=g.e, build_s=host_s)))
     del g, feats, labels
     return runs
@@ -4587,6 +4597,24 @@ GC_LEAVES = {"layers.0.attn.wk": (2560, 1024), "layers.0.attn.k_norm": (128,),
 GC_STEPS = 2
 
 
+# The LM step on a mesh: Qwen3-4B at full width cut in depth, its training
+# step and prefill on (data, model) (2, 2) under LM_TRAIN_RULES, one
+# sequence of 4,096 tokens a data rank (`mesh_lm_rank`).
+MESH_LM_SHAPE = (2, 2)
+MESH_LM_LAYERS = 2  # of Qwen3-4B's 36, drawn at 36's scale
+MESH_LM_BATCH, MESH_LM_SEQ, MESH_LM_SEED = 2, 4096, 5
+# m and v of each leaf's max |value| (m is the clipped gradient times 1 -
+# b1), the loss and grad norm relative; the prefill's last logits of their
+# max: the ranks in float32, TF32 off, against the world of one's step;
+# the ranks with TF32 matmuls are a control that must land above. Each is
+# the geometric mean of the largest float32 and the smallest control
+# reading of the first card run, rounded down to a 1-2-5 step (PERF.md:
+# 7.55e-6 / 5.04e-3 and 4.77e-6 / 1.06e-3)
+MESH_LM_TOL = 1e-4
+MESH_LM_LOGIT_TOL = 5e-5
+MESH_LM_PEAK_TOL = 0.25  # the dry run's reckoned peak against max_memory_allocated
+
+
 def spawn_ranks(fn, world: int, args, timeout: float) -> list:
     """fn(rank, world, *args) in `world` spawned processes; their results
     by rank. A rank's exception, a rank that dies, or no result from every
@@ -4807,7 +4835,8 @@ def gc_grads(step: int, rank: int) -> dict:
 def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dict:
     """One of the phase's four ranks: gloo on `device_type` ("cuda": every
     rank on cuda:0). In order, every rank alike: the gloo route on the
-    device's tensors, the expert-parallel MoE layer cases, the
+    device's tensors (float32 and bf16), the LM step on the (2, 2) mesh
+    (`mesh_lm_rank`), the expert-parallel MoE layer cases, the
     expert-parallel prefill, the PNA forward at the cut ogb_products size,
     the four archs' losses and gradients on the cut graph, compressed_psum
     over a "pod" axis. Returns figures only (no tensor crosses back but
@@ -4843,9 +4872,29 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
             torch.equal(red.cpu(), (torch.arange(2 * world) * world + 100 * sum(range(world)))
                         .float())):
         raise AssertionError(f"rank {rank}: gloo on {dev} tensors gave wrong results")
+    # and bf16, which the mesh LM's timed step moves: sums, the loss head's max
+    xb = (torch.arange(2 * world, device=dev) + rank).to(torch.bfloat16)
+    redb, maxb, a2ab = xb.clone(), xb.clone(), torch.empty_like(xb)
+    dist.all_reduce(redb)
+    dist.all_reduce(maxb, op=dist.ReduceOp.MAX)
+    dist.all_to_all_single(a2ab, xb)
+    partsb = [torch.empty_like(xb) for _ in range(world)]
+    dist.all_gather(partsb, xb)
+    ar = torch.arange(2 * world)
+    if not (torch.equal(redb.float().cpu(), (ar * world + sum(range(world))).float()) and
+            torch.equal(maxb.float().cpu(), (ar + world - 1).float()) and
+            torch.equal(torch.stack(partsb).float().cpu()[:, 0], torch.arange(world).float()) and
+            torch.equal(a2ab.float().cpu(), torch.cat([torch.arange(2 * rank, 2 * rank + 2) + s
+                                                       for s in range(world)]).float())):
+        raise AssertionError(f"rank {rank}: gloo on {dev} bf16 tensors gave wrong results")
     out["route"] = dict(backend=dist.get_backend(), tensors=str(dev.type),
                         all_to_all_single="ok", all_gather="ok", all_reduce="ok",
+                        bf16="ok (sum, max, all_gather, all_to_all_single)",
                         staged_through_host_by_the_port=False)
+
+    # the LM step on the mesh, first: it needs the most of the card
+    out["lm_mesh"] = mesh_lm_rank(mesh, dev, rank, shard_dir)
+    _empty_cache(dev)
 
     # expert-parallel MoE layer at qwen2-moe's full width
     t = time.perf_counter()
@@ -4872,6 +4921,272 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+class _RankOf:
+    """A (data, model) mesh of `MESH_LM_SHAPE` seen from one rank, enough
+    for `local_shard` in a process with no process group."""
+
+    def __init__(self, rank: int):
+        self.shape = dict(zip(("data", "model"), MESH_LM_SHAPE))
+        self._coords = {"data": rank // MESH_LM_SHAPE[1], "model": rank % MESH_LM_SHAPE[1]}
+
+    def axis_size(self, name):
+        names = (name,) if isinstance(name, str) else name
+        return int(np.prod([self.shape[a] for a in names]))
+
+    def axis_index(self, name):
+        idx = 0
+        for a in ((name,) if isinstance(name, str) else name):
+            idx = idx * self.shape[a] + self._coords[a]
+        return idx
+
+
+def mesh_lm_cfg(dtype):
+    """(Qwen3-4B cut to MESH_LM_LAYERS in `dtype`, its full depth)."""
+    from repro_torch.configs import qwen3_4b
+
+    full = qwen3_4b.model_cfg()
+    return dataclasses.replace(full, n_layers=MESH_LM_LAYERS, dtype=dtype), full.n_layers
+
+
+def mesh_lm_layout(cfg, mesh):
+    from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules
+    from repro_torch.models.transformer import MeshLayout
+
+    return MeshLayout(cfg, mesh, merged_rules(LM_TRAIN_RULES))
+
+
+def mesh_lm_batch():
+    from repro_torch.data.tokens import token_batch
+
+    cfg, _ = mesh_lm_cfg(torch.float32)
+    return {k: torch.as_tensor(v) for k, v in
+            token_batch(0, MESH_LM_BATCH, MESH_LM_SEQ, cfg.vocab, seed=MESH_LM_SEED).items()}
+
+
+def mesh_lm_ref(device, shard_dir) -> dict:
+    """The world of one's float32 step (TF32 off, warmup 0: the base
+    learning rate) of the mesh path's model and batch, and its prefill's
+    last logits on the parameters before the step. Each rank's blocks of
+    m and of the logits go to a file a rank under `shard_dir`, with the
+    loss, grad norm and learning rate."""
+    from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules
+    from repro_torch.distributed.mesh_utils import LogicalRules, local_shard, resolve_pspec
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    t0 = time.perf_counter()
+    params = draw_params(cfg, device, depth, seed=MESH_LM_SEED)
+    batch = {k: v.to(device) for k, v in mesh_lm_batch().items()}
+    with torch.no_grad():
+        last, kvs = T.Transformer(dataclasses.replace(cfg, remat=False), params=params,
+                                  device=device).prefill_forward(batch["tokens"])
+        del kvs
+    state = init_train_state(params)
+    del params
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg), warmup=0, total_steps=10)
+    _sync(device)
+    t = time.perf_counter()
+    state, met = step(state, batch)
+    _sync(device)
+    step_s = time.perf_counter() - t
+    lr = LogicalRules(MeshShape(("data", "model"), MESH_LM_SHAPE),
+                      merged_rules(LM_TRAIN_RULES))
+    specs = _flat_list(T.lm_local_pspecs(cfg, lr))
+    m = _flat_list(state.opt_state["m"])
+    del state
+    head = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]), lr=float(met["lr"]))
+    last_spec = resolve_pspec(("batch", "vocab"), tuple(last.shape), lr)
+    for r in range(SHARD_WORLD):
+        at = _RankOf(r)
+        torch.save(dict(head, m={k: local_shard(v, specs[k], at).cpu() for k, v in m.items()},
+                        last=local_shard(last, last_spec, at).cpu()),
+                   os.path.join(shard_dir, f"lm_mesh_{r}.pt"))
+    del m
+    _empty_cache(device)
+    return dict(head, step_s=step_s, s=time.perf_counter() - t0,
+                params=sum(int(np.prod(s.shape)) for s in _flat_list(
+                    T.lm_param_specs(cfg)).values()))
+
+
+def mesh_lm_reckoned() -> dict:
+    """The dry run's rule for the timed bf16 step of a rank (`count_step`
+    per rank on meta tensors, as rank 0 of a fake world of 4): the rank's
+    state bytes, the temporaries' peak and their sum."""
+    from repro_torch.analysis.roofline import count_step
+    from repro_torch.distributed.mesh_utils import local_shard, resolve_pspec
+    from repro_torch.launch.dryrun import fake_process_mesh, tensors
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import abstract_params, local_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import TrainState, make_train_step, trainable
+
+    cfg, _ = mesh_lm_cfg(torch.bfloat16)
+    t = time.perf_counter()
+    with fake_process_mesh(MeshShape(("data", "model"), MESH_LM_SHAPE)) as mesh:
+        lay = mesh_lm_layout(cfg, mesh)
+        params = trainable(local_params(T.unstack_layers(abstract_params(T.lm_param_specs(cfg)),
+                                                         cfg), lay.specs, mesh))
+        state = TrainState(params, adamw_init(params),
+                           torch.empty((), dtype=torch.int32, device="meta"))
+        spec = resolve_pspec(("batch", "seq"), (MESH_LM_BATCH, MESH_LM_SEQ), lay.lr)
+        tok = torch.empty((MESH_LM_BATCH, MESH_LM_SEQ), dtype=torch.int32, device="meta")
+        batch = {k: local_shard(tok, spec, mesh) for k in ("tokens", "labels")}
+        step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg, lay), warmup=0,
+                               total_steps=10, mesh=mesh, specs=lay.specs)
+        _, count = count_step(step, (state, batch), score_dims=(MESH_LM_SEQ, MESH_LM_SEQ),
+                              per_rank=True)
+        state_bytes = sum(x.numel() * x.element_size() for x in tensors((state, batch)))
+    return dict(state_bytes=state_bytes, temp_bytes=count.temp_bytes,
+                peak_bytes=state_bytes + count.temp_bytes, collective_bytes=count.collective_bytes,
+                collectives=count.collectives, flops=count.flops, s=time.perf_counter() - t)
+
+
+def _flash_routes(events) -> dict:
+    """Flash launches in a profile by route: forward kernels, and backward
+    launches by their dQ pass (one a launch)."""
+    names = [n for n, _, _ in events]
+    return {"fwd_tc": sum("flash_attention_kernel_tc<" in n for n in names),
+            "fwd_f32": sum("flash_attention_kernel<" in n for n in names),
+            "bwd_tc": sum("flash_bwd_dq_kernel_tc<" in n for n in names),
+            "bwd_f32": sum("flash_bwd_dq_kernel<" in n for n in names)}
+
+
+def mesh_lm_rank(mesh, dev, rank, shard_dir) -> dict:
+    """The LM step on the mesh, this rank's part: Qwen3-4B at full width
+    cut to MESH_LM_LAYERS, its shards (`local_params` of the same draw as
+    the world of one's) and its sequence of the batch. In float32, TF32
+    off: one training step (warmup 0), its m and v against the world of
+    one's (`mesh_lm_ref`: v from its m), the parameters against one AdamW
+    step of the world of one's m from the same shards (within 2 lr, an
+    Adam step's reach on a gradient whose sign rounding turns), the loss
+    and grad norm; the prefill's last logits on the shards before the
+    step. Then the TF32 control of both, its step profiled (the float32
+    route's kernels). In bf16: a warm step, a timed step (the flash
+    launches counted from 0 around it, CUDA events and the wall,
+    max_memory_allocated after the peak stats are reset) and a profiled
+    step (the tensor-core route's kernels)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import local_shard, resolve_pspec
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import local_params, tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    lay = mesh_lm_layout(cfg, mesh)
+    ref = torch.load(os.path.join(shard_dir, f"lm_mesh_{rank}.pt"), weights_only=False)
+    p0 = local_params(draw_params(cfg, dev, depth, seed=MESH_LM_SEED), lay.specs, mesh)
+    _empty_cache(dev)
+    tok_spec = resolve_pspec(("batch", "seq"), (MESH_LM_BATCH, MESH_LM_SEQ), lay.lr)
+    batch = {k: local_shard(v, tok_spec, mesh).to(dev) for k, v in mesh_lm_batch().items()}
+    opt = AdamWConfig()
+
+    def step_once(tf32: bool, profile: bool = False):
+        state = init_train_state(tree_map(lambda a: a.clone(), p0))
+        step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg, lay), opt, warmup=0,
+                               total_steps=10, mesh=mesh, specs=lay.specs)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        LAUNCHES.clear()
+        out, events = [], None
+        try:
+            if profile:
+                events = _device_events(lambda: out.append(step(state, batch)))
+            else:
+                out.append(step(state, batch))
+                _sync(dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return out[0][0], out[0][1], dict(LAUNCHES), events
+
+    def held(state, met) -> dict:
+        """Each leaf's error against the world of one's: m and v of the
+        leaf's max, the parameters in absolute terms."""
+        m, v, p = (_flat_list(t) for t in (state.opt_state["m"], state.opt_state["v"],
+                                            state.params))
+        lr, em, ev, ep, over, n = ref["lr"], {}, {}, 0.0, 0, 0
+        start = _flat_list(p0)
+        for k, m_ref in ref["m"].items():
+            m_ref = m_ref.to(dev)
+            g = m_ref / (1 - opt.b1)
+            v_ref = (1 - opt.b2) * g * g
+            q0 = start[k].float()
+            upd = (m_ref / (1 - opt.b1)) / (torch.sqrt(v_ref / (1 - opt.b2)) + opt.eps)
+            p_ref = q0 - lr * (upd + opt.weight_decay * q0)
+            em[k] = float((m[k] - m_ref).abs().max() / m_ref.abs().max().clamp(min=1e-30))
+            ev[k] = float((v[k] - v_ref).abs().max() / v_ref.abs().max().clamp(min=1e-30))
+            d = (p[k].detach().float() - p_ref).abs()
+            ep, over, n = max(ep, float(d.max())), over + int((d > 1e-6).sum()), n + d.numel()
+        return dict(m=max(em.values()), m_leaf=max(em, key=em.get), v=max(ev.values()),
+                    loss=abs(float(met["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                    grad_norm=abs(float(met["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                    params_max_abs=ep, params_tol=2 * lr + 1e-6, params_share_over_1e6=over / n)
+
+    t = time.perf_counter()
+    state, met, f32_launches, _ = step_once(False)
+    f32 = held(state, met)
+    f32_s = time.perf_counter() - t
+    del state
+    state, met, _, events = step_once(True, profile=True)
+    control = held(state, met)
+    f32_routes = _flash_routes(events)
+    del state, events
+    icfg = dataclasses.replace(cfg, remat=False)
+    ilay = mesh_lm_layout(icfg, mesh)
+    ref_last = ref["last"].to(dev)
+    logit_err = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            last, kvs = T.prefill_forward(p0, batch["tokens"], icfg, ilay)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        logit_err[tf32] = float((last - ref_last).abs().max() / ref_last.abs().max())
+        del last, kvs
+    del p0, ref, ref_last
+    _empty_cache(dev)
+
+    # the timed step, bf16
+    cfg16, _ = mesh_lm_cfg(torch.bfloat16)
+    lay16 = mesh_lm_layout(cfg16, mesh)
+    state = init_train_state(local_params(draw_params(cfg16, dev, depth, seed=MESH_LM_SEED),
+                                          lay16.specs, mesh))
+    _empty_cache(dev)
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg16, lay16), opt, warmup=0,
+                           total_steps=10, mesh=mesh, specs=lay16.specs)
+    state, _ = step(state, batch)  # warm
+    _sync(dev)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    LAUNCHES.clear()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    state, met = step(state, batch)
+    stop.record()
+    _sync(dev)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss16 = float(met["loss"])
+    dist.barrier()
+    events = _device_events(lambda: step(state, batch))
+    bf16_routes = _flash_routes(events)
+    del state, events
+    _empty_cache(dev)
+    return dict(f32=f32, control=control, f32_s=f32_s, f32_launches=f32_launches,
+                f32_routes=f32_routes, logits=logit_err[False], logits_control=logit_err[True],
+                launches=launches, bf16_routes=bf16_routes, step_ms=start.elapsed_time(stop),
+                wall_ms=wall_ms, loss_bf16=loss16, peak_allocated=peak, allocated_before=before,
+                s=time.perf_counter() - t0)
 
 
 def _empty_cache(dev):
@@ -5244,6 +5559,71 @@ def world_of_one(device, shard_dir, products) -> dict:
                 pna_chunks=dcfg.n_chunks)
 
 
+def check_mesh_lm(ranks, ref, reckoned) -> dict:
+    """Hold and log the mesh LM path's readings of every rank: float32
+    within MESH_LM_TOL (m, v, loss, grad norm) and MESH_LM_LOGIT_TOL (the
+    prefill's logits), the TF32 control above each; the parameters within 2 lr; the flash
+    launches of each step on its route (wrapper counts and profiles); the
+    reckoned peak within MESH_LM_PEAK_TOL of max_memory_allocated."""
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    L = cfg.n_layers
+    lm = [r["lm_mesh"] for r in ranks]
+    worst = max(max(x["f32"][k] for k in ("m", "v", "loss", "grad_norm")) for x in lm)
+    control = min(max(x["control"]["m"], x["control"]["v"]) for x in lm)
+    logits = max(x["logits"] for x in lm)
+    logits_control = min(x["logits_control"] for x in lm)
+    log(f"[sharded] LM step on a mesh: {cfg.name} at full width cut to {L} of {depth} layers "
+        f"(drawn at {depth}'s scale, {ref['params']} parameters), mesh (data, model) "
+        f"{MESH_LM_SHAPE}, LM_TRAIN_RULES, {MESH_LM_BATCH} x {MESH_LM_SEQ} tokens (one "
+        f"sequence a data rank); float32, TF32 off, one step (lr {ref['lr']:.3g}) against the "
+        f"world of one's (loss {ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f}, "
+        f"{ref['step_s']:.2f} s): worst of m, v (of each leaf's max), loss and grad norm "
+        f"(relative) by rank " + " ".join(f"{max(x['f32'][k] for k in ('m', 'v', 'loss', 'grad_norm')):.3g}"
+                                         for x in lm) +
+        f" (tol {MESH_LM_TOL}; worst leaf {lm[0]['f32']['m_leaf']}); the TF32 control "
+        f"{control:.3g} at least; parameters max |diff| "
+        f"{max(x['f32']['params_max_abs'] for x in lm):.3g} (tol {lm[0]['f32']['params_tol']:.3g}), "
+        f"{max(x['f32']['params_share_over_1e6'] for x in lm):.3g} of them over 1e-6; prefill's "
+        f"last logits {logits:.3g} of their max (tol {MESH_LM_LOGIT_TOL}; control "
+        f"{logits_control:.3g}); float32 step "
+        + " ".join(f"{x['f32_s']:.1f}" for x in lm) + " s by rank")
+    if not (worst <= MESH_LM_TOL < control and logits <= MESH_LM_LOGIT_TOL < logits_control):
+        raise AssertionError(f"the LM step on a mesh against the world of one: "
+                             f"{[(x['f32'], x['control'], x['logits'], x['logits_control']) for x in lm]}")
+    for x in lm:
+        if x["f32"]["params_max_abs"] > x["f32"]["params_tol"]:
+            raise AssertionError(f"the LM step on a mesh: parameters off {x['f32']}")
+    fwd = 2 * L if cfg.remat else L  # remat recomputes each layer's forward
+    want = {"flash_attention": fwd, "flash_attention_bwd": L}
+    for x in lm:
+        if {k: x["f32_launches"].get(k, 0) for k in want} != want or \
+                {k: x["launches"].get(k, 0) for k in want} != want:
+            raise AssertionError(f"the mesh step launched {x['f32_launches']} (float32) and "
+                                 f"{x['launches']} (bf16), expected {want} a rank")
+        if x["f32_routes"] != {"fwd_tc": 0, "fwd_f32": fwd, "bwd_tc": 0, "bwd_f32": L} or \
+                x["bf16_routes"] != {"fwd_tc": fwd, "fwd_f32": 0, "bwd_tc": L, "bwd_f32": 0}:
+            raise AssertionError(f"the mesh step's profiles: {x['f32_routes']} (float32), "
+                                 f"{x['bf16_routes']} (bf16)")
+    peaks = [x["peak_allocated"] for x in lm]
+    off = [abs(reckoned["peak_bytes"] - p) / p for p in peaks]
+    log(f"[sharded] LM step on a mesh, bf16 (the timed step, every rank at once on the one "
+        f"card): flash launches a rank (wrapper) {lm[0]['launches']}, in profiles "
+        f"{lm[0]['bf16_routes']} (bf16) and {lm[0]['f32_routes']} (float32 control); step "
+        + " ".join(f"{x['step_ms']:.1f}" for x in lm) + " ms by rank (CUDA events; wall "
+        + " ".join(f"{x['wall_ms']:.1f}" for x in lm) + " ms); loss "
+        + " ".join(f"{x['loss_bf16']:.4f}" for x in lm) + "; peak allocated by rank "
+        + " ".join(f"{p / 1e9:.3f}" for p in peaks) + " GB against the dry run's reckoning "
+        f"{reckoned['peak_bytes'] / 1e9:.3f} GB (state {reckoned['state_bytes'] / 1e9:.3f} + "
+        f"temporaries {reckoned['temp_bytes'] / 1e9:.3f}; {reckoned['collective_bytes'] / 1e9:.3f}"
+        f" GB of collectives {reckoned['collectives']}), off by " +
+        " ".join(f"{o:.3f}" for o in off) + f" (tol {MESH_LM_PEAK_TOL}); rank path "
+        + " ".join(f"{x['s']:.1f}" for x in lm) + " s")
+    if max(off) > MESH_LM_PEAK_TOL:
+        raise AssertionError(f"the reckoned peak {reckoned} against {peaks}")
+    return dict(ranks=lm, ref=ref, reckoned=reckoned, tol=MESH_LM_TOL,
+                logit_tol=MESH_LM_LOGIT_TOL, peak_off=off, layers=L, shape=MESH_LM_SHAPE)
+
+
 def sharded_paths(device):
     """Phase 13: the sharded paths, as four gloo ranks on the one card.
 
@@ -5263,8 +5643,12 @@ def sharded_paths(device):
     DIST_LOSS_RTOL of the world of one's; each arch's loss and gradients
     against the unsharded loss; compressed_psum's payloads and scales equal
     the CPU's and its mean within one quantisation step of the plain mean.
-    A rank that fails or hangs fails the phase. Returns (figures, the
-    ranks' flash launches in the prefill)."""
+    A rank that fails or hangs fails the phase. Before the ranks, this
+    process also runs the mesh LM's world of one (`mesh_lm_ref`) and the
+    dry run's reckoning of its timed step (`mesh_lm_reckoned`); the ranks'
+    readings are held by `check_mesh_lm`. Returns (figures, the ranks'
+    flash launches summed: the expert-parallel prefill's and the mesh
+    LM's timed step's, by wrapper)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -5279,6 +5663,9 @@ def sharded_paths(device):
         last_ref, moved = ep_prefill_ref(device)
         prefill_ref_s = time.perf_counter() - t
         one = world_of_one(device, shard_dir, products)
+        _empty_cache(device)
+        lm_ref = mesh_lm_ref(device, shard_dir)
+    lm_reckoned = mesh_lm_reckoned()
     _empty_cache(device)
     parent_gb = torch.cuda.memory_reserved(device) / 1e9 if device.type == "cuda" else 0.0
     setup_s = time.perf_counter() - t0
@@ -5289,9 +5676,10 @@ def sharded_paths(device):
 
     r0 = ranks[0]
     log(f"[sharded] {SHARD_WORLD} ranks, gloo on {r0['route']['tensors']} tensors: "
-        f"all_to_all_single, all_gather and all_reduce taken by gloo as they are, checked on "
-        f"every rank; the port stages nothing through host memory; ranks up in "
-        f"{max(r['start_s'] for r in ranks):.1f} s")
+        f"all_to_all_single, all_gather and all_reduce taken by gloo as they are, float32 and "
+        f"bf16 (sum and max), checked on every rank; the port stages nothing through host "
+        f"memory; ranks up in {max(r['start_s'] for r in ranks):.1f} s")
+    lm_mesh = check_mesh_lm(ranks, lm_ref, lm_reckoned)
     log(f"[sharded] world of one over {one['backend']}: expert-parallel layer " +
         "; ".join(f"{c['tokens_a_shard']} tokens ({c['regime']}, capacity {c['capacity']}) worst "
                   f"{c['worst']:.3g} ({c['worst_leaf']})" for c in one["moe_layer"]) +
@@ -5389,7 +5777,8 @@ def sharded_paths(device):
         "besides (not counted by torch)")
     n_flash = sum(p["flash_launches"] for p in pf)
     figures = dict(
-        route=r0["route"], world_of_one=one, moe_layer=[r["moe_layer"] for r in ranks],
+        route=r0["route"], world_of_one=one, lm_mesh=lm_mesh,
+        moe_layer=[r["moe_layer"] for r in ranks],
         prefill=dict(rel_l2=errs, tol=EP_PREFILL_TOL, input_moved=moved,
                      flash_launches=[p["flash_launches"] for p in pf],
                      flash_profiled=[p["flash_profiled"] for p in pf],
@@ -5402,7 +5791,13 @@ def sharded_paths(device):
         peak_reserved_gb=[r.get("peak_reserved_gb") for r in ranks],
         peak_allocated_gb=[r.get("peak_allocated_gb") for r in ranks],
         parent_reserved_gb=parent_gb)
-    return figures, n_flash
+    # the flash launches of the phase's paths: the expert-parallel prefill's
+    # and the mesh LM's timed step, summed over the ranks
+    launches = {"flash_attention": n_flash + sum(r["lm_mesh"]["launches"].get(
+        "flash_attention", 0) for r in ranks),
+        "flash_attention_bwd": sum(r["lm_mesh"]["launches"].get("flash_attention_bwd", 0)
+                                   for r in ranks)}
+    return figures, launches
 
 
 def main() -> int:
@@ -5508,9 +5903,10 @@ def main() -> int:
     phase_done("grouting")
     planning = planning_and_examples(device, lm, train, zoo)
     phase_done("planning and examples")
-    sharded, n_sharded_flash = sharded_paths(device)
-    # and the expert-parallel prefill's, summed over its four ranks
-    kernels["flash_attention"]["launches"] += n_sharded_flash
+    sharded, sharded_launches = sharded_paths(device)
+    # and the expert-parallel prefill's and the mesh LM step's, summed over the four ranks
+    for k, v in sharded_launches.items():
+        kernels[k]["launches"] += v
     phase_done("sharded paths")
 
     log(json.dumps({"cells": cells, "profiles": profiles, "frontier": frontier}))

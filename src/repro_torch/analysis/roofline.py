@@ -24,12 +24,33 @@ The port has neither: `count_step` runs the port's own step eagerly on
     out, as the reference's does.
 
 Eager counts are exact at any depth, so the reference's two-point depth
-extrapolation is not needed. No sharded step exists yet (the four-card
-item), so collective bytes are None, the collective term is None, and the
-bottleneck is taken over the terms that were counted (`bottleneck_over`).
-Per-device flops and bytes are the step's counts divided evenly over the
-mesh (keys ending in `_even_split`); per-device state bytes are exact,
-from the sharding specs (`launch/dryrun.py`).
+extrapolation is not needed.
+
+A sharded step (one rank's own, run over a `fake` process group of the
+mesh's size: `launch/dryrun.py`) is counted as rank 0 runs it, so its
+flops and bytes are rank 0's (keys ending in `_rank0`), and the dispatch
+mode also sees its collectives, the `c10d` ops:
+
+  - collective bytes: each op's output bytes by kind (all-reduce,
+    all-gather, all-to-all, reduce-scatter, broadcast), the data a device
+    receives, as the reference's `parse_collectives` counts its HLO's
+    output shapes (an all-reduce's payload once, not a ring's 2x);
+  - between nodes: the bytes of the ops whose group spans more than one
+    node of GPUS_PER_NODE cards (rank // GPUS_PER_NODE), at the node link's
+    rate; the rest at NVLink's. Inter-pod bytes (groups spanning pods, the
+    reference's split) are reported beside them;
+  - the peak: the live storage bytes the step allocates, each output's
+    storage added when it appears and taken away when it is freed, the
+    largest sum (`temp_bytes`; the attention scores left out, as the
+    flash kernels keep them on chip); the peak per device is that plus the
+    arguments' bytes (the reference's temp + argument sizes).
+
+A step run on one device (every cell the dry run cannot run per rank, and
+any step counted without a process group) has no collectives: its
+collective bytes and term are None, the bottleneck is taken over the
+terms that were counted (`bottleneck_over`), and its flops and bytes are
+divided evenly over the mesh (keys ending in `_even_split`). Per-device
+state bytes are exact, from the sharding specs (`launch/dryrun.py`).
 
 The plain attention path counts every (q, key) pair, masked or not; the
 flash kernels skip the fully masked tiles, so a causal step's attention
@@ -39,6 +60,7 @@ flops are about twice what the card computes.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -60,6 +82,19 @@ HBM_BYTES = 80e9  # 80 GB of HBM3 (datasheet)
 NVLINK_BW = 450e9  # bytes/s a direction: NVLink 4, 900 GB/s a GPU both ways (datasheet)
 NODE_LINK_BW = 50e9  # bytes/s a GPU between nodes: one 400 Gb/s NDR InfiniBand
 #                      port a GPU (NVIDIA DGX H100 system's eight ConnectX-7 ports)
+GPUS_PER_NODE = 8  # an NVIDIA DGX H100 system: eight H100s on one NVLink domain
+
+# c10d ops (overload packet names, trailing "_" dropped) -> the HLO kind of
+# the reference's `parse_collectives`
+COLLECTIVE_KINDS = {
+    "allreduce": "all-reduce", "allreduce_coalesced": "all-reduce",
+    "allgather": "all-gather", "_allgather_base": "all-gather",
+    "allgather_into_tensor_coalesced": "all-gather", "allgather_coalesced": "all-gather",
+    "alltoall": "all-to-all", "alltoall_base": "all-to-all",
+    "reduce_scatter": "reduce-scatter", "_reduce_scatter_base": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "broadcast": "broadcast",
+}
 
 # aten ops (overload packet names, trailing "_" dropped) whose operands and
 # outputs stream through HBM whatever a compiler fuses: the reference's
@@ -94,7 +129,8 @@ def product_peak(dtype: torch.dtype, tf32: bool = False) -> str:
 
 @dataclasses.dataclass
 class StepCount:
-    """One step's counts, whole (not split over a mesh)."""
+    """One step's counts: the whole step's, or rank 0's where the step runs
+    per rank (`per_rank`)."""
 
     flops: float  # FlopCounterMode's total
     flops_by_dtype: Dict[str, float]  # the same flops by the products' operand dtype
@@ -102,6 +138,13 @@ class StepCount:
     major_bytes: float  # MAJOR_OPS only
     score_bytes: float  # of major_bytes: attention score tensors
     ops: int  # aten ops dispatched
+    per_rank: bool = False  # one rank's own step, over a process group
+    collective_bytes: float = 0.0  # c10d output bytes
+    inter_node_bytes: float = 0.0  # of which over groups spanning nodes
+    inter_pod_bytes: float = 0.0  # of which over groups spanning pods
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)  # ops by kind
+    collective_bytes_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
+    temp_bytes: float = 0.0  # the peak of the live storage the step allocated
 
     def peak(self, tf32: bool = False) -> str:
         """The peak of the dtype that carries most of the product flops."""
@@ -115,19 +158,67 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _group_ranks(args) -> Optional[list]:
+    """The global ranks of the process group among a c10d op's arguments
+    (a boxed `ProcessGroup`), or None where it cannot be read."""
+    import torch.distributed as dist
+
+    unbox = getattr(dist.ProcessGroup, "unbox", None)
+    for a in args:
+        if isinstance(a, torch.ScriptObject) and unbox is not None:
+            return dist.get_process_group_ranks(unbox(a))
+    return None
+
+
 class _Tally(TorchDispatchMode):
-    def __init__(self, score_dims: Optional[Tuple[int, int]]):
+    def __init__(self, score_dims: Optional[Tuple[int, int]], pod_size: Optional[int]):
         super().__init__()
         self.count = StepCount(0.0, {}, 0.0, 0.0, 0.0, 0)
+        self.pod_size = pod_size
         if score_dims is None:
             self.score_pairs = set()
         else:
             sq, skv = score_dims
             self.score_pairs = {(r, skv) for r in (sq, ATTN_CHUNK)}
             self.score_pairs |= {(b, a) for a, b in self.score_pairs}
+        self.live = 0  # bytes of the storages the step allocated, still alive
+        self.tracked = set()  # their ids
 
     def is_score(self, t: torch.Tensor) -> bool:
         return t.dim() >= 3 and tuple(t.shape[-2:]) in self.score_pairs
+
+    def _freed(self, sid: int, nbytes: int) -> None:
+        self.tracked.discard(sid)
+        self.live -= nbytes
+
+    def _allocated(self, outs, ins) -> None:
+        """Track each output storage that no input holds and that is not
+        tracked yet; the peak of the live sum is `temp_bytes`."""
+        seen = {t.untyped_storage()._cdata for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            sid = st._cdata
+            if sid in seen or sid in self.tracked or self.is_score(t):
+                continue
+            seen.add(sid)
+            self.tracked.add(sid)
+            self.live += st.nbytes()
+            weakref.finalize(st, self._freed, sid, st.nbytes())
+        self.count.temp_bytes = max(self.count.temp_bytes, float(self.live))
+
+    def _collective(self, name: str, args) -> None:
+        c = self.count
+        kind = COLLECTIVE_KINDS.get(name, name)
+        out = [t for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor)]
+        b = float(sum(_nbytes(t) for t in out))
+        c.collective_bytes += b
+        c.collectives[kind] = c.collectives.get(kind, 0) + 1
+        c.collective_bytes_by_kind[kind] = c.collective_bytes_by_kind.get(kind, 0.0) + b
+        ranks = _group_ranks(args)
+        if ranks is None or len({r // GPUS_PER_NODE for r in ranks}) > 1:
+            c.inter_node_bytes += b  # a group it cannot read counts as the slower link's
+        if self.pod_size and (ranks is None or len({r // self.pod_size for r in ranks}) > 1):
+            c.inter_pod_bytes += b
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -135,9 +226,18 @@ class _Tally(TorchDispatchMode):
         c = self.count
         c.ops += 1
         name = _op_name(func)
-        if func.is_view or name in _FREE:
+        if func.namespace == "c10d":
+            if name != "barrier":
+                self._collective(name, args)
             return out
-        tensors = [t for t in tree_leaves((args, kwargs, out)) if isinstance(t, torch.Tensor)]
+        if func.is_view:
+            return out
+        ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        self._allocated(outs, ins)
+        if name in _FREE:
+            return out
+        tensors = ins + outs
         moved = sum(_nbytes(t) for t in tensors)
         c.bytes += moved
         if name in MAJOR_OPS:
@@ -151,12 +251,16 @@ class _Tally(TorchDispatchMode):
         return out
 
 
-def count_step(fn, args: Iterable, score_dims: Optional[Tuple[int, int]] = None):
+def count_step(fn, args: Iterable, score_dims: Optional[Tuple[int, int]] = None,
+               pod_size: Optional[int] = None, per_rank: bool = False):
     """(fn(*args), StepCount): the step run once under the counters.
     score_dims (Sq, Skv): tensors of three or more dims whose last two are
     (Sq or an `attention_chunked_ref` chunk, Skv), either way round, are
-    attention scores."""
-    tally = _Tally(score_dims)
+    attention scores. per_rank: fn is one rank's step over a process group
+    (rank 0's, in the dry run); pod_size: the ranks a pod, for the
+    inter-pod split of its collectives."""
+    tally = _Tally(score_dims, pod_size)
+    tally.count.per_rank = per_rank
     with FlopCounterMode(display=False) as flops, tally:
         out = fn(*args)
     tally.count.flops = float(flops.get_total_flops())
@@ -169,17 +273,19 @@ class RooflineReport:
     shape: str
     mesh: str
     n_devices: int
-    flops_per_device: float  # counted flops, split evenly over the mesh
-    bytes_per_device: float  # eager, unfused bytes, split evenly
-    adj_bytes_per_device: float  # major-op bytes, split evenly
-    score_bytes_per_device: float  # attention-score bytes among them, split evenly
-    collective_bytes: Optional[float]  # None: no sharded step to count
+    flops_per_device: float  # counted flops: rank 0's, or split evenly over the mesh
+    bytes_per_device: float  # eager, unfused bytes, likewise
+    adj_bytes_per_device: float  # major-op bytes, likewise
+    score_bytes_per_device: float  # attention-score bytes among them, likewise
+    collective_bytes: Optional[float]  # rank 0's; None: a step run on one device
     inter_pod_bytes: Optional[float]
     model_flops: float  # analytic 6ND / 2ND
-    peak_memory_bytes: Optional[float]  # per device with temporaries: None until sharded
+    peak_memory_bytes: Optional[float]  # rank 0's arguments + temporaries; None on one device
     peak_state_bytes: float  # per device: state read (arguments) + written (outputs)
     collectives: Optional[Dict[str, int]]
     peak: str = "bf16"  # PEAK_FLOPS key of the step's products
+    inter_node_bytes: Optional[float] = None  # of collective_bytes; None: inter_pod_bytes
+    counted_on: str = "even_split"  # "rank0": one rank's own counts
 
     @property
     def peak_flops(self) -> float:
@@ -206,7 +312,8 @@ class RooflineReport:
     def t_collective(self) -> Optional[float]:
         if self.collective_bytes is None:
             return None
-        inter = self.inter_pod_bytes or 0.0
+        inter = self.inter_node_bytes if self.inter_node_bytes is not None else \
+            (self.inter_pod_bytes or 0.0)
         return (self.collective_bytes - inter) / NVLINK_BW + inter / NODE_LINK_BW
 
     def _terms(self) -> Dict[str, float]:
@@ -234,6 +341,7 @@ class RooflineReport:
         return self.model_flops / (t * self.peak_flops * self.n_devices)
 
     def row(self) -> dict:
+        on = self.counted_on
         return {
             "arch": self.arch,
             "shape": self.shape,
@@ -247,10 +355,10 @@ class RooflineReport:
             "bottleneck": self.bottleneck,
             "bottleneck_over": sorted(self._terms()),
             "model_flops": self.model_flops,
-            "flops_per_dev_even_split": self.flops_per_device,
-            "eager_bytes_per_dev_even_split": self.bytes_per_device,
-            "major_bytes_per_dev_even_split": self.adj_bytes_per_device,
-            "score_bytes_per_dev_even_split": self.score_bytes_per_device,
+            f"flops_per_dev_{on}": self.flops_per_device,
+            f"eager_bytes_per_dev_{on}": self.bytes_per_device,
+            f"major_bytes_per_dev_{on}": self.adj_bytes_per_device,
+            f"score_bytes_per_dev_{on}": self.score_bytes_per_device,
             "useful_flops_frac": self.useful_flops_fraction,
             "roofline_fraction": self.roofline_fraction,
             "state_rw_gb_per_dev": self.peak_state_bytes / 1e9,
@@ -258,23 +366,35 @@ class RooflineReport:
             else self.peak_memory_bytes / 1e9,
             "collectives": self.collectives,
             "collective_bytes": self.collective_bytes,
+            "inter_node_bytes": self.inter_node_bytes,
             "inter_pod_bytes": self.inter_pod_bytes,
         }
 
 
 def build_report(arch: str, shape: str, mesh_name: str, n_devices: int, count: StepCount,
-                 state_rw_bytes: float, model_flops: float, tf32: bool = False) -> RooflineReport:
-    """The report of one counted step over `n_devices` (counts split evenly;
-    `state_rw_bytes` per device)."""
-    n = float(n_devices)
+                 state_rw_bytes: float, model_flops: float, tf32: bool = False,
+                 argument_bytes: Optional[float] = None) -> RooflineReport:
+    """The report of one counted step over `n_devices` (`state_rw_bytes`
+    per device). A step counted per rank (its collectives counted) is rank
+    0's: its counts stand as they are, and its peak is `argument_bytes`
+    (per device) plus its temporaries; a step run on one device is split
+    evenly and has no collective term and no peak."""
+    per_rank = count.per_rank
+    n = 1.0 if per_rank else float(n_devices)
     return RooflineReport(
         arch=arch, shape=shape, mesh=mesh_name, n_devices=n_devices,
         flops_per_device=count.flops / n, bytes_per_device=count.bytes / n,
         adj_bytes_per_device=count.major_bytes / n,
         score_bytes_per_device=count.score_bytes / n,
-        collective_bytes=None, inter_pod_bytes=None, model_flops=model_flops,
-        peak_memory_bytes=None, peak_state_bytes=float(state_rw_bytes), collectives=None,
-        peak=count.peak(tf32))
+        collective_bytes=count.collective_bytes if per_rank else None,
+        inter_pod_bytes=count.inter_pod_bytes if per_rank else None,
+        model_flops=model_flops,
+        peak_memory_bytes=(argument_bytes or 0.0) + count.temp_bytes if per_rank else None,
+        peak_state_bytes=float(state_rw_bytes),
+        collectives=dict(count.collectives) if per_rank else None,
+        peak=count.peak(tf32),
+        inter_node_bytes=count.inter_node_bytes if per_rank else None,
+        counted_on="rank0" if per_rank else "even_split")
 
 
 def model_flops_share(model_flops: float, seconds: float, peak: str, n_devices: int = 1) -> float:

@@ -18,6 +18,15 @@ reference writes the array's own dtype). Restore copies each leaf INTO the
 tensors of `tree_like` (cast to their dtype, on their device) and returns
 that tree: a training state keeps its parameters' identity, and no second
 copy of it is made on the device.
+
+A sharded state (this rank's shards on a `ProcessMesh`, with a spec tree
+of the same structure, e.g. `TrainState(param specs, opt_state_pspecs(..),
+())`) is saved as whole leaves in the same manifest: every rank gathers
+each leaf in turn (`mesh_utils.gather`) and rank 0 writes, so the
+checkpoint reads like one device's. Restore with a mesh and specs reads
+each whole leaf and copies this rank's block of it (`local_shard`), from
+a checkpoint written on any mesh or on one device (the reference's
+`restore_checkpoint(..., shardings=)`).
 """
 
 from __future__ import annotations
@@ -60,8 +69,35 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _host_leaves(tree) -> List[Tuple[str, np.ndarray, str]]:
-    return [(key, *_to_host(leaf)) for key, leaf in _flatten_with_paths(tree)]
+def _host_leaves(tree, mesh=None, specs=None) -> List[Tuple[str, np.ndarray, str]]:
+    """(key, host array, dtype name) a leaf; on a mesh each leaf is gathered
+    whole first (every rank takes part; only rank 0 keeps the copy)."""
+    if mesh is None:
+        return [(key, *_to_host(leaf)) for key, leaf in _flatten_with_paths(tree)]
+    from repro_torch.distributed.mesh_utils import gather
+
+    out = []
+    with torch.no_grad():
+        for key, leaf in _flatten_with_paths(tree):
+            whole = gather(leaf, _spec_at(specs, key), mesh) \
+                if isinstance(leaf, torch.Tensor) else leaf
+            if mesh.rank == 0:
+                out.append((key, *_to_host(whole)))
+    return out
+
+
+def _spec_at(specs, key: str):
+    """The spec of the leaf at path `key` of a spec tree that mirrors the
+    state's structure (dicts, lists, dataclasses; spec tuples at its leaves)."""
+    node = specs
+    for part in key.split("/") if key else ():
+        if isinstance(node, dict):
+            node = node[part]
+        elif isinstance(node, list):
+            node = node[int(part)]
+        else:
+            node = getattr(node, part)
+    return node
 
 
 def _write(directory: str, step: int, leaves, keep_last: int) -> str:
@@ -85,9 +121,20 @@ def _write(directory: str, step: int, leaves, keep_last: int) -> str:
     return final
 
 
-def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3) -> str:
-    """Write `tree` as step `step` of `directory`; returns the step's path."""
-    return _write(directory, step, _host_leaves(tree), keep_last)
+def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3, mesh=None,
+                    specs=None) -> str:
+    """Write `tree` as step `step` of `directory`; returns the step's path.
+    A sharded tree (`mesh`, `specs`): every rank calls it, rank 0 writes
+    the whole leaves, and every rank returns once the step is published."""
+    if mesh is None:
+        return _write(directory, step, _host_leaves(tree), keep_last)
+    import torch.distributed as dist
+
+    leaves = _host_leaves(tree, mesh, specs)
+    path = _write(directory, step, leaves, keep_last) if mesh.rank == 0 else \
+        os.path.join(directory, f"step_{step:08d}")
+    dist.barrier()
+    return path
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -106,10 +153,12 @@ def _load(path: str, dtype: str) -> torch.Tensor:
 
 
 @torch.no_grad()
-def restore_checkpoint(directory: str, step: Optional[int], tree_like):
+def restore_checkpoint(directory: str, step: Optional[int], tree_like, mesh=None, specs=None):
     """Copy step `step` (None: the latest) of `directory` into `tree_like`'s
     tensors, each cast to its dtype; returns (tree_like, step). Every key of
-    `tree_like` must be in the manifest with its shape."""
+    `tree_like` must be in the manifest with its shape. With a `mesh` and
+    `specs`, `tree_like` holds this rank's shards: each is this rank's
+    block (`local_shard`) of the stored whole leaf."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -119,6 +168,10 @@ def restore_checkpoint(directory: str, step: Optional[int], tree_like):
     for key, like in _flatten_with_paths(tree_like):
         m = by_key[key]
         t = _load(os.path.join(d, m["file"]), m["dtype"])
+        if mesh is not None:
+            from repro_torch.distributed.mesh_utils import local_shard
+
+            t = local_shard(t, _spec_at(specs, key), mesh)
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"{key}: {tuple(t.shape)} vs {tuple(like.shape)}")
         like.copy_(t)

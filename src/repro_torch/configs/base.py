@@ -10,6 +10,14 @@ and the reference's `meta` keys (params, tokens, seq, n_groups, kind,
 model_flops). The dry run counts the step's flops and bytes by running it
 eagerly on the meta tensors at full depth (`analysis/roofline.py`).
 
+Given a `ProcessMesh` (the dry run builds one over a `fake` process group
+of the mesh's size), the sharded cells' steps run per rank, with rank 0's
+own arguments: the LM's training step and prefill on the mesh
+(`models/transformer.py` `MeshLayout`), and ogb_products' full-graph step
+(`models/gnn/distributed.py`); `meta["per_rank"]` says so. Given a mesh
+that is only a shape (`launch.mesh.MeshShape`), every step runs as on one
+device, as do the LM's decode cells on any mesh (`SINGLE_DEVICE_DECODE`).
+
 The graph shapes (`GNN_SHAPES`) are all synthetic (`graph/generators.py`,
 `data/graphs.py`): full_graph_sm has Cora's shape, minibatch_lg Reddit's
 with GraphSAGE's fanout, ogb_products ogbn-products' (distributed in the
@@ -26,11 +34,16 @@ import torch
 from repro_torch.distributed.mesh_utils import DEFAULT_RULES, resolve_pspec, set_mesh_rules
 from repro_torch.models.param import abstract_params, param_count, param_pspecs
 
-# why a cell's step is planned but not counted: the sharded full-graph step
-# (models/gnn/distributed.py) runs over a process group, and counting its
-# collectives on meta tensors is not ported
-FOUR_CARD_ITEM = ("needs a sharded step's collectives counted on meta tensors "
-                  "(models/gnn/distributed.py runs over a process group; ROADMAP Queue 1)")
+# why a cell is counted as one device's step, split evenly over the mesh
+SINGLE_DEVICE_DECODE = ("the decode step runs on one device and its counts are split evenly "
+                        "over the mesh: the decode step on a mesh, with its sequence-parallel "
+                        "KV cache (LM_DECODE_RULES), is the next slice (ROADMAP Queue 1)")
+
+
+def per_rank_mesh(mesh) -> bool:
+    """Whether `mesh` is a `ProcessMesh` (axis groups to run a rank's step
+    over), not only a shape."""
+    return hasattr(mesh, "group")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,13 +101,14 @@ def meta_tensor(shape, dtype=torch.int32) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def train_step_fn(loss_fn: Callable, opt_cfg, schedule: bool = False):
+def train_step_fn(loss_fn: Callable, opt_cfg, schedule: bool = False, mesh=None, specs=None):
     """The reference dry run's train step over the port's pieces: the
     gradients of one microbatch (`accum_value_and_grad`), AdamW in place,
     the step advanced; with `schedule` the learning rate is
-    `warmup_cosine(step, lr, 100, 10_000)`.
+    `warmup_cosine(step, lr, 100, 10_000)`. With a mesh and the parameters'
+    specs, one rank's step: the global norm over the shards.
     No host read: meta tensors have no values."""
-    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.adamw import adamw_update, global_norm
     from repro_torch.optim.schedule import warmup_cosine
     from repro_torch.train.train_step import TrainState, accum_value_and_grad
 
@@ -103,20 +117,23 @@ def train_step_fn(loss_fn: Callable, opt_cfg, schedule: bool = False):
     def train_step(st, b):
         (loss, metrics), grads = vg(st.params, b)
         lr = warmup_cosine(st.step, opt_cfg.lr, 100, 10_000) if schedule else None
-        _, _, om = adamw_update(grads, st.opt_state, st.params, opt_cfg, lr=lr)
+        gn = global_norm(grads, specs, mesh) if mesh is not None else None
+        _, _, om = adamw_update(grads, st.opt_state, st.params, opt_cfg, lr=lr, gn=gn)
         return TrainState(st.params, st.opt_state, st.step + 1), dict(metrics, loss=loss, **om)
 
     return train_step
 
 
-def abstract_train_state(ap, pspecs, per_layer: Optional[Callable] = None):
+def abstract_train_state(ap, pspecs, per_layer: Optional[Callable] = None, local=None):
     """(the state `train_step_fn` takes, the same state as `ap`'s layout,
     its specs): the parameters as trainable meta tensors (`per_layer` maps
-    `ap` to the step's layout), AdamW's m and v, the step."""
+    `ap` to the step's layout; `local`, if given, maps that to a rank's
+    shards), AdamW's m and v, the step."""
     from repro_torch.optim.adamw import abstract_opt_state, adamw_init, opt_state_pspecs
     from repro_torch.train.train_step import TrainState, trainable
 
-    params = trainable(per_layer(ap) if per_layer else ap)
+    params = per_layer(ap) if per_layer else ap
+    params = trainable(local(params) if local else params)
     step = meta_tensor(())
     state = TrainState(params, adamw_init(params), step)
     layout = TrainState(ap, abstract_opt_state(ap), step)
@@ -190,14 +207,22 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
     the weights' re-reads and the float32 accumulator of the microbatch
     loop. The loss head keeps its chunks (each recomputed in the backward)
     and attention its q chunks above 2048 x 2048 (`kernels.ops.attention`),
-    as the step runs them."""
+    as the step runs them.
+
+    On a `ProcessMesh` the training step and prefill are rank 0's own
+    (`models/transformer.py` on a `MeshLayout` under the cell's rules): its
+    shards of the state (`models.param.local_params`) and its rows of the
+    batch. The decode cells run as on one device (`SINGLE_DEVICE_DECODE`)."""
+    from repro_torch.distributed.mesh_utils import local_shard
     from repro_torch.models import transformer as T
+    from repro_torch.models.param import local_params
 
     n_groups_full = cfg.n_layers // cfg.group_size
     cfg = dataclasses.replace(cfg, grad_accum=1)
     d = LM_SHAPES[shape]
     rules = merged_rules(cell.rules)
     seq, batch = d["seq"], d["batch"]
+    sharded = per_rank_mesh(mesh) and cell.kind in ("train", "prefill")
     with set_mesh_rules(mesh, rules) as lr:
         specs = T.lm_param_specs(cfg)
         ap = abstract_params(specs)
@@ -205,37 +230,43 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
         n_params = param_count(specs)
         per_layer = lambda tree: T.unstack_layers(tree, cfg)
         tok_sh = lambda s: resolve_pspec(("batch", "seq" if s > 1 else None), (batch, s), lr)
+        meta = {"params": n_params, "tokens": batch * seq, "seq": seq,
+                "n_groups": n_groups_full, "kind": cell.kind, "per_rank": sharded}
+        lay = T.MeshLayout(cfg, mesh, rules) if sharded else None
+        on_rank = (lambda tree: local_params(tree, lay.specs, mesh)) if sharded else None
+        rows = (lambda t: local_shard(t, tok_sh(seq), mesh)) if sharded else (lambda t: t)
 
         if cell.kind == "train":
             from repro_torch.optim.adamw import AdamWConfig
 
-            state, layout, state_sh = abstract_train_state(ap, pspecs, per_layer)
+            state, layout, state_sh = abstract_train_state(ap, pspecs, per_layer, on_rank)
             batch_abs = {"tokens": meta_tensor((batch, seq)), "labels": meta_tensor((batch, seq))}
             batch_sh = {"tokens": tok_sh(seq), "labels": tok_sh(seq)}
-            fn = train_step_fn(lambda p, bb: T.loss_fn(p, bb, cfg), AdamWConfig(),
-                               schedule=True)
+            fn = train_step_fn(lambda p, bb: T.loss_fn(p, bb, cfg, lay), AdamWConfig(),
+                               schedule=True, mesh=mesh if sharded else None,
+                               specs=lay.specs if sharded else None)
             return DryRunSpec(
-                fn=fn, args=(state, batch_abs), in_specs=(state_sh, batch_sh),
+                fn=fn, args=(state, {k: rows(v) for k, v in batch_abs.items()}),
+                in_specs=(state_sh, batch_sh),
                 state=(layout, batch_abs), donate=(0,), rules=rules,
-                meta={"params": n_params, "tokens": batch * seq, "seq": seq,
-                      "n_groups": n_groups_full,
-                      "model_flops": lm_model_flops(cfg, batch * seq, "train"),
-                      "kind": "train"})
+                meta=dict(meta, model_flops=lm_model_flops(cfg, batch * seq, "train")))
 
         icfg = dataclasses.replace(cfg, remat=False)
         if cell.kind == "prefill":
             tok = meta_tensor((batch, seq))
+            ilay = T.MeshLayout(icfg, mesh, rules) if sharded else None
 
             def prefill(params, tokens):
+                if sharded:
+                    return T.prefill_forward(params, tokens, icfg, ilay)
                 return T.Transformer(icfg, params, device="meta").prefill_forward(tokens)
 
+            params = per_layer(ap)
             return DryRunSpec(
-                fn=prefill, args=(per_layer(ap), tok), in_specs=(pspecs, tok_sh(seq)),
+                fn=prefill, args=(on_rank(params) if sharded else params, rows(tok)),
+                in_specs=(pspecs, tok_sh(seq)),
                 state=(ap, tok), rules=rules,
-                meta={"params": n_params, "tokens": batch * seq, "seq": seq,
-                      "n_groups": n_groups_full,
-                      "model_flops": lm_model_flops(cfg, batch * seq, "prefill"),
-                      "kind": "prefill"})
+                meta=dict(meta, model_flops=lm_model_flops(cfg, batch * seq, "prefill")))
 
         # decode: one new token against a seq-long KV cache
         kv_abs = T.abstract_kv_cache(icfg, batch, seq)
@@ -250,7 +281,8 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
             in_specs=(pspecs, kv_sh, tok_sh(1)), state=(ap, kv_abs, tok), donate=(1,),
             rules=rules,
             meta={"params": n_params, "tokens": batch,
-                  "model_flops": lm_model_flops(cfg, batch, "decode"), "kind": "decode"})
+                  "model_flops": lm_model_flops(cfg, batch, "decode"), "kind": "decode",
+                  "per_rank": False, "counted_as": SINGLE_DEVICE_DECODE})
 
 
 # ---------------------------------------------------------------------------
@@ -359,13 +391,53 @@ def build_gnn_dryrun(arch_name: str, model_mod, model_cfg, shape: str, mesh, cel
         meta = {"params": n_params, "tokens": n_eff, "edges": e_eff,
                 "n_groups": model_cfg.n_layers,
                 "model_flops": 6.0 * n_params * (e_eff + n_eff) / max(n_eff, 1),
-                "kind": "train", "distributed": bool(d.get("distributed"))}
+                "kind": "train", "distributed": bool(d.get("distributed")),
+                "per_rank": False}
 
         if d.get("distributed"):
-            return DryRunSpec(fn=None, args=(state,), in_specs=(state_sh,), state=(layout,),
-                              rules=rules, meta=dict(meta, not_counted=FOUR_CARD_ITEM))
+            return _dist_gnn_spec(arch_name, model_cfg, d, mesh, state, layout, state_sh,
+                                  rules, meta, needs_pos)
         inputs, ispecs = _gnn_batch_abstract(shape, d, needs_pos, lr)
         fn = train_step_fn(lambda p, b: model_mod.loss_fn(p, b, model_cfg),
                            AdamWConfig(weight_decay=0.0))
         return DryRunSpec(fn=fn, args=(state, inputs), in_specs=(state_sh, ispecs),
                           state=(layout, inputs), donate=(0,), rules=rules, meta=meta)
+
+
+def _dist_gnn_spec(arch_name, model_cfg, d, mesh, state, layout, state_sh, rules, meta,
+                   needs_pos) -> DryRunSpec:
+    """ogb_products' full-graph step (`models/gnn/distributed.py`) at the
+    reference's plan (edge chunks of 32768, 16384 for EquiformerV2): on a
+    `ProcessMesh` rank 0's own step over its blocks of the graph (meta
+    tensors of `local_dist_inputs`' shapes) with the parameters
+    replicated; on a mesh that is only a shape, uncounted (the step runs
+    over a process group)."""
+    from repro_torch.distributed.mesh_utils import local_shard, mesh_axes
+    from repro_torch.models.gnn.distributed import (
+        abstract_dist_inputs, dist_input_pspecs, make_dist_gnn_loss, plan_dist_graph,
+    )
+    from repro_torch.optim.adamw import AdamWConfig
+
+    axes = tuple(a for a in ("data", "model") if a in mesh_axes(mesh))
+    dcfg = plan_dist_graph(d["n_nodes"], d["n_edges"], mesh_axes(mesh), d_feat=d["d_feat"],
+                           n_out=d["n_out"],
+                           edge_chunk=16384 if arch_name == "equiformer-v2" else 32768,
+                           axes=axes)
+    inputs = abstract_dist_inputs(dcfg, with_pos=needs_pos)
+    ispecs = dist_input_pspecs(dcfg, with_pos=needs_pos)
+    if not per_rank_mesh(mesh):
+        return DryRunSpec(fn=None, args=(state, inputs), in_specs=(state_sh, ispecs),
+                          state=(layout, inputs), rules=rules,
+                          meta=dict(meta, not_counted=NEEDS_PROCESS_MESH))
+    local = {k: local_shard(v, ispecs[k], mesh) for k, v in inputs.items()}
+    fn = train_step_fn(make_dist_gnn_loss(arch_name, mesh, dcfg, model_cfg),
+                       AdamWConfig(weight_decay=0.0))
+    return DryRunSpec(fn=fn, args=(state, local), in_specs=(state_sh, ispecs),
+                      state=(layout, inputs), donate=(0,), rules=rules,
+                      meta=dict(meta, per_rank=True))
+
+
+# why ogb_products' step is planned but not counted on a mesh that is only
+# a shape: the sharded full-graph step runs over a process group
+NEEDS_PROCESS_MESH = ("the sharded full-graph step (models/gnn/distributed.py) runs over a "
+                      "process group: the dry run counts it as rank 0 of a fake one")

@@ -23,7 +23,9 @@ every rank of it (a loss read on every rank, a psum's result). So
     built from `all_to_all` and a sum in rank order, which every backend
     takes;
   - `all_to_all` (tiled along dim 0): backward the reverse exchange, which
-    for equal blocks is the same exchange.
+    for equal blocks is the same exchange;
+  - `pmax`: the max over the group, with no gradient (the vocab-parallel
+    loss's shift, which cancels from its log-sum-exp).
 
 PyTorch's own `torch.distributed.nn.functional` differs: its `all_reduce`
 all-reduces the cotangent too, which behind a psum of the loss multiplies
@@ -31,7 +33,12 @@ gradients by the group size.
 
 Backends: NCCL and gloo both take CUDA tensors for every call here (gloo
 through its CUDA work on torch 2.11, checked on an H100), so no call
-stages through host memory. Integer tensors cross with no gradient.
+stages through host memory. gloo on torch 2.11 takes bf16 and float16
+CUDA tensors as they are for all_reduce (sum and max), all_gather,
+all_to_all_single and broadcast (checked on an H100), so a bf16 psum is
+a sum in bf16 on every backend, as the reference's bf16 psum is, and no
+gather moves bits in place of values. Integer tensors cross with no
+gradient.
 """
 
 from __future__ import annotations
@@ -155,3 +162,11 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     row s of the result came from it (`jax.lax.all_to_all` tiled over axis
     0). Float payloads carry their gradient back to the senders."""
     return _AllToAll.apply(x, group)
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks, detached: no gradient
+    flows through it (the caller uses it as a shift that cancels)."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

@@ -33,6 +33,10 @@ it resolves the spec (so a spec that does not fit raises) and returns the
 tensor unchanged, since the reference's constraint changes a layout, never
 a value, and the port's sharded code slices explicitly. `local_shard` is a
 shard_map `in_spec`'s counterpart: a rank's block of a global tensor.
+`layout` reads a resolved spec back (which dims split over which axes),
+`gather` is `local_shard`'s inverse over some or all of those axes (a
+tiled `collectives.all_gather` a dim, so its backward is a reduce-scatter:
+FSDP's weight gather), and `split_axes` names every axis a spec splits.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -203,3 +207,39 @@ def shards(spec: Spec, mesh) -> int:
         for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
             n *= axes[a]
     return n
+
+
+def _entry_axes(entry: AxisName) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def layout(spec: Spec) -> Dict[int, Tuple[str, ...]]:
+    """{dim: the axes it splits over, in the spec's order} of a resolved
+    spec; a dim absent from it is whole on every rank."""
+    return {dim: _entry_axes(e) for dim, e in enumerate(spec) if e is not None}
+
+
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis the spec splits some dim over, in the spec's order."""
+    return tuple(a for axes in layout(spec).values() for a in axes)
+
+
+def gather(x, spec: Spec, mesh, axes: Optional[Iterable[str]] = None):
+    """`local_shard`'s inverse: this rank's block x of a tensor under `spec`,
+    gathered to whole along every dim split over `axes` (default: every
+    axis the spec names) by a tiled `collectives.all_gather` over that dim's
+    group, whose backward is a reduce-scatter by sum. A dim split over a
+    tuple of axes is gathered over their flattened group, so such an entry
+    must lie within `axes` whole."""
+    from repro_torch.distributed import collectives
+
+    want = set(split_axes(spec) if axes is None else axes)
+    for dim, names in layout(spec).items():
+        hit = want.intersection(names)
+        if not hit:
+            continue
+        if len(hit) != len(names):
+            raise ValueError(f"dim {dim} splits over {names}: gather all of them or none")
+        if mesh.axis_size(names) > 1:
+            x = collectives.all_gather(x, mesh.group(names), dim)
+    return x

@@ -6,16 +6,29 @@ its roofline terms at the H100's peaks.
 Nothing runs on a device: each cell's step (`configs/base.py`
 `build_dryrun`) runs eagerly on `meta` tensors at full depth under the
 counters of `analysis/roofline.py`, so any machine can plan any mesh.
+The process starts a `fake` process group of the mesh's size as rank 0
+(`fake_process_mesh`) and builds the `ProcessMesh` on it: a collective
+on a meta tensor then runs no op but keeps its shapes, and every group is
+built on every rank, as `ProcessMesh` builds them, for 0.01 s at 512.
 
   - Per-device state bytes (parameters, optimizer state, KV cache, batch)
-    are exact, from the sharding specs (`distributed/mesh_utils.py`). The
-    fit is stated for the state alone (`state_fits_80gb`): the temporaries
-    need the sharded step (ROADMAP, the four-card item) and are None.
-  - Flops and bytes are the whole step's, split evenly over the mesh.
+    are exact, from the sharding specs (`distributed/mesh_utils.py`).
+  - The sharded steps (an LM's training step and prefill, ogb_products'
+    full-graph step; `meta["per_rank"]`) run as rank 0 runs them, on its
+    shards and over its groups: their flops and bytes are rank 0's own,
+    with its collectives' bytes by kind, split within and between nodes,
+    and its temporaries. `temp_bytes` is the peak of the live storage the
+    step allocates: each output's storage is added when it appears and
+    taken away when it is freed, the attention scores left out (the flash
+    kernels keep them on chip); the peak per device is that plus the
+    arguments' bytes, and the fit (`fits_80gb`) is stated for it.
+  - Every other step (the decode cells, the zoo's one-device cells) runs
+    as on one device: its flops and bytes are split evenly over the mesh,
+    it has no collectives, its temporaries are None and its fit is stated
+    for the state alone (`state_fits_80gb`).
   - A cell whose step cannot run on meta tensors (grouting's serving step
-    reads the device; ogb_products needs the sharded full-graph step) gives
-    its state bytes, the reference's model flops and the reason; its
-    counted flops are None.
+    reads the device) gives its state bytes, the reference's model flops
+    and the reason; its counted flops are None.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh single
@@ -29,6 +42,7 @@ down) and writes one JSON per cell to --out (default artifacts/dryrun).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,6 +57,27 @@ import torch
 from repro_torch.analysis.roofline import HBM_BYTES, build_report, count_step
 from repro_torch.distributed.mesh_utils import shards
 from repro_torch.launch.mesh import make_production_mesh
+
+
+@contextlib.contextmanager
+def fake_process_mesh(mesh):
+    """A `ProcessMesh` of `mesh`'s axes and sizes over a `fake` process
+    group of its size, this process rank 0; the group is torn down on
+    exit. The process must run no other process group meanwhile."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed.mesh import ProcessMesh
+
+    if dist.is_initialized():
+        raise RuntimeError(f"the dry run starts its own process group: one "
+                           f"({dist.get_backend()}) is running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield ProcessMesh(mesh.sizes, mesh.axes)
+    finally:
+        dist.destroy_process_group()
+
 
 def _is_spec(x) -> bool:
     return isinstance(x, tuple) and all(
@@ -79,13 +114,17 @@ def state_bytes(tree, spec, mesh) -> int:
     return sum(state_bytes(t, s, mesh) for t, s in zip(_children(tree), _children(spec)))
 
 
-def count_cell(spec):
+def count_cell(spec, mesh=None):
     """(spec, fn's output, its StepCount); the output and the count are
-    None where the step cannot run on meta tensors."""
+    None where the step cannot run on meta tensors. A per-rank step's
+    collectives are split between pods by `mesh`'s "pod" axis."""
     if spec.fn is None:
         return spec, None, None
     seq = spec.meta.get("seq")
-    return (spec,) + count_step(spec.fn, spec.args, score_dims=(seq, seq) if seq else None)
+    pods = mesh.shape.get("pod", 1) if mesh is not None else 1
+    return (spec,) + count_step(spec.fn, spec.args, score_dims=(seq, seq) if seq else None,
+                                pod_size=mesh.size // pods if pods > 1 else None,
+                                per_rank=bool(spec.meta.get("per_rank")))
 
 
 def report_for(spec, mesh, counted, arch_name: str, shape: str, tf32: bool = False):
@@ -93,8 +132,8 @@ def report_for(spec, mesh, counted, arch_name: str, shape: str, tf32: bool = Fal
     and, where its step was counted (`counted`, from `count_cell`), its
     roofline report with the state read once and written once; the report
     is None where the step was not counted. Written state: the arguments
-    updated in place, once more, and every other output split evenly over
-    the mesh."""
+    updated in place, once more, and every other output: rank 0's own
+    for a per-rank step, else split evenly over the mesh."""
     counted_spec, out, count = counted
     layout = spec.state or spec.args
     arg_bytes = [state_bytes(a, s, mesh) for a, s in zip(layout, spec.in_specs)]
@@ -102,25 +141,29 @@ def report_for(spec, mesh, counted, arch_name: str, shape: str, tf32: bool = Fal
     memory = {
         "argument_bytes": state,
         "argument_bytes_by_arg": arg_bytes,
-        "temp_bytes": None,  # needs the sharded step (four cards)
+        "temp_bytes": None,  # a step run on one device: not a device's
         "per_device_state_gb": round(state / 2**30, 3),
         "state_fits_80gb": bool(state < HBM_BYTES),
     }
     if count is None:
         return memory, None
+    if count.per_rank:
+        peak = state + count.temp_bytes
+        memory.update(temp_bytes=count.temp_bytes, peak_bytes=peak,
+                      per_device_peak_gb=round(peak / 2**30, 3), fits_80gb=bool(peak < HBM_BYTES))
     donated = {id(t) for i in spec.donate for t in tensors(counted_spec.args[i])}
     fresh = sum(t.numel() * t.element_size() for t in tensors(out) if id(t) not in donated)
-    written = sum(arg_bytes[i] for i in spec.donate) + fresh / mesh.size
+    written = sum(arg_bytes[i] for i in spec.donate) + fresh / (1 if count.per_rank else mesh.size)
     memory["output_bytes"] = written
     return memory, build_report(arch_name, shape, mesh.name, mesh.size, count, state + written,
-                                spec.meta.get("model_flops", 0.0), tf32)
+                                spec.meta.get("model_flops", 0.0), tf32, argument_bytes=state)
 
 
 def run_cell(arch_name: str, shape: str, mesh_kind: str, out_dir: Optional[str],
              counts: Optional[Dict[tuple, tuple]] = None) -> dict:
     """The cell's record on the mesh. `counts`, kept by a caller that runs
-    a cell on several meshes, holds each cell's count (it does not depend
-    on the mesh)."""
+    a cell on several meshes, holds each cell's count where it does not
+    depend on the mesh (a step run as on one device)."""
     from repro_torch.configs import get_arch
 
     arch = get_arch(arch_name)
@@ -134,21 +177,26 @@ def run_cell(arch_name: str, shape: str, mesh_kind: str, out_dir: Optional[str],
         return rec
 
     t0 = time.time()
-    # the spec trees depend on the mesh; the step's counts do not
-    spec = arch.build_dryrun(shape, mesh)
+    # the spec trees depend on the mesh; a one-device step's counts do not
     counts = {} if counts is None else counts
-    if (arch_name, shape) not in counts:
-        counts[arch_name, shape] = count_cell(spec)
-    count = counts[arch_name, shape][2]
+    with fake_process_mesh(mesh) as pmesh:
+        spec = arch.build_dryrun(shape, pmesh)
+        key = (arch_name, shape) + ((mesh.name,) if spec.meta.get("per_rank") else ())
+        if key not in counts:
+            counts[key] = count_cell(spec, mesh)
+    count = counts[key][2]
     t_count = time.time() - t0
-    memory, rep = report_for(spec, mesh, counts[arch_name, shape], arch_name, shape)
+    memory, rep = report_for(spec, mesh, counts[key], arch_name, shape)
     rec.update(t_count_s=round(t_count, 2), n_devices=mesh.size, memory=memory,
                meta=spec.meta)
     if rep is None:
         rec.update(status="state_only", reason=spec.meta["not_counted"], counted_flops=None)
     else:
         rec.update(status="ok", counted_flops=count.flops, ops=count.ops,
-                   flops_by_dtype=count.flops_by_dtype, roofline=rep.row())
+                   flops_by_dtype=count.flops_by_dtype, roofline=rep.row(),
+                   counted_on=rep.counted_on)
+        if count.per_rank:
+            rec["collective_bytes_by_kind"] = count.collective_bytes_by_kind
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         fn = f"{arch_name}__{shape}__{mesh.name}.json".replace("/", "_")
@@ -165,11 +213,17 @@ def result_line(rec: dict) -> str:
     if rec["status"] != "ok":
         return head + f"counted_flops=None ({rec['reason']})"
     r = rec["roofline"]
+    x = "None" if r["t_collective_s"] is None else f"{r['t_collective_s']:.2e}"
+    tail = ""
+    if rec.get("counted_on") == "rank0":
+        tail = (f" collective_bytes={r['collective_bytes']:.4e} "
+                f"temp/dev={m['temp_bytes'] / 2**30:.3f}GB peak/dev={m['per_device_peak_gb']}GB "
+                f"fits_80gb={m['fits_80gb']}")
     return head + (
-        f"counted_flops={rec['counted_flops']:.4e} peak={r['peak']} "
-        f"bottleneck={r['bottleneck']} "
-        f"t=(c {r['t_compute_s']:.2e}, m {r['t_memory_s']:.2e}, x None)s "
-        f"roofline_frac={r['roofline_fraction']:.3f}")
+        f"counted_flops={rec['counted_flops']:.4e} ({rec.get('counted_on', 'even_split')}) "
+        f"peak={r['peak']} bottleneck={r['bottleneck']} "
+        f"t=(c {r['t_compute_s']:.2e}, m {r['t_memory_s']:.2e}, x {x})s "
+        f"roofline_frac={r['roofline_fraction']:.3f}" + tail)
 
 
 def main(argv=None) -> int:

@@ -117,20 +117,55 @@ def _chunk_nll(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
 
 
+def _chunk_nll_vocab_parallel(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                              cap: Optional[float], group, vocab_lo: int) -> torch.Tensor:
+    """The summed NLL of a chunk whose vocab is split over `group`: this
+    rank's logits are columns [vocab_lo, vocab_lo + V_loc). The shift is
+    the row max over the group (no gradient: it cancels), the sum of exps
+    a psum, and the label's logit is taken on the rank that owns it and
+    psum'd."""
+    from repro_torch.distributed import collectives as C
+
+    logits = softcap((x @ unembed).float(), cap)  # (..., V_loc)
+    v_loc = logits.shape[-1]
+    shift = C.pmax(logits.amax(-1), group)
+    lse = shift + torch.log(C.psum(torch.sum(torch.exp(logits - shift[..., None]), -1), group))
+    lab = labels.long() - vocab_lo
+    mine = (lab >= 0) & (lab < v_loc)
+    own = torch.gather(logits, -1, lab.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = C.psum(torch.where(mine, own, torch.zeros((), device=own.device)), group)
+    return torch.sum(lse - gold)
+
+
 def chunked_unembed_xent(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
-                         cap: Optional[float] = None, chunk: int = 512) -> torch.Tensor:
+                         cap: Optional[float] = None, chunk: int = 512, group=None,
+                         vocab_lo: int = 0, mean: bool = True) -> torch.Tensor:
     """Unembed + cross-entropy (mean NLL) of x (B, S, d) against labels
     (B, S), chunked over the sequence so that the (B, S, V) float32 logits
     never exist at once: each chunk's summed NLL runs under
     `torch.utils.checkpoint` (its backward recomputes the chunk's logits),
     and the sum over chunks is divided by B * S. One whole-logits pass when
-    S % chunk != 0 or S <= chunk, as the reference."""
+    S % chunk != 0 or S <= chunk, as the reference.
+
+    Vocab-parallel with a `group`: `unembed` is this rank's columns of the
+    vocab, starting at `vocab_lo`, and the logits are (B, chunk, V_loc);
+    the chunks are the same. mean=False returns the summed NLL (a sharded
+    step divides the psum of sums over the batch axes itself)."""
     B, S, _ = x.shape
-    if S % chunk != 0 or S <= chunk:
-        return cross_entropy_loss(softcap((x @ unembed).float(), cap), labels)
+    if group is None and (S % chunk != 0 or S <= chunk):
+        if mean:
+            return cross_entropy_loss(softcap((x @ unembed).float(), cap), labels)
+        return _chunk_nll(x, unembed, labels, cap)
+    step = S if (S % chunk != 0 or S <= chunk) else chunk
     total = None
-    for i in range(0, S, chunk):
-        part = checkpoint(_chunk_nll, x[:, i:i + chunk], unembed, labels[:, i:i + chunk], cap,
-                          use_reentrant=False)
+    for i in range(0, S, step):
+        args = (x[:, i:i + step], unembed, labels[:, i:i + step], cap)
+        if group is None:
+            part = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        elif step == S:
+            part = _chunk_nll_vocab_parallel(*args, group, vocab_lo)
+        else:
+            part = checkpoint(_chunk_nll_vocab_parallel, *args, group, vocab_lo,
+                              use_reentrant=False)
         total = part if total is None else total + part
-    return div(total, float(B * S))
+    return div(total, float(B * S)) if mean else total

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.mesh_utils import LogicalRules, resolve_pspec
+from repro_torch.distributed.mesh_utils import LogicalRules, local_shard, resolve_pspec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +52,26 @@ def tree_map(fn, tree):
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_map_with(fn, tree, other):
+    """`tree_map` over two trees of the same structure: fn(leaf, its
+    counterpart in `other`). `other` may hold tuples at its leaves (spec
+    tuples): it is walked along `tree`'s dicts and lists only."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with(fn, v, o) for v, o in zip(tree, other, strict=True)]
+    return fn(tree, other)
+
+
+def local_params(params, specs, mesh):
+    """This rank's shards of a tree of whole tensors under a spec tree of
+    the same structure (`param_pspecs`' tuples, a tree's layout): the
+    reference's `device_put` with a `NamedSharding` a leaf, as
+    `mesh_utils.local_shard` copies. Meta tensors give meta shards of the
+    local shapes. An LM's per-layer tree takes `transformer.lm_local_pspecs`."""
+    return tree_map_with(lambda p, s: local_shard(p, s, mesh), params, specs)
 
 
 def _draw(s: ParamSpec, generator: torch.Generator, device: torch.device) -> torch.Tensor:

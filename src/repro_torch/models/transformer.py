@@ -25,6 +25,39 @@ The decode cache is a list of per-layer {"k", "v": (B, Hkv, Smax, Dh),
 "pos": int}. `serve_step` writes the new keys and values into it IN PLACE
 (a functional update would copy the whole cache every step) and returns
 it with `pos` advanced; `pos` is a Python int, so slicing needs no sync.
+
+On a mesh (`MeshLayout`): the reference binds its step to a mesh and lets
+GSPMD write the collectives (`configs/base.py` `bind_rules`,
+`LM_TRAIN_RULES`). Here `loss_fn` and `prefill_forward` given a layout run
+per rank, on this rank's shards of the port's tree (`lm_local_pspecs`,
+`models.param.local_params`) and its batch rows, every rank at once:
+
+  - FSDP: each weight is gathered over the batch axes it is split on
+    before use (`mesh_utils.gather`, whose backward is a reduce-scatter);
+  - attention and the FFN are column-parallel then row-parallel over
+    "model" (q / k / v and w_gate / w_up on this rank's columns, wo and
+    w_down on its rows), closed by a psum; the activation entering such a
+    block enters "model";
+  - the rank's q heads are its block of heads where the q activation's
+    spec splits heads over "model" (`transformer.py:207` in the
+    reference), else every head; its k / v heads are the slice those q
+    heads read, so the kernel's own GQA mapping holds (one kv head shared
+    by several ranks when a rank has fewer q heads than a group; the kv
+    heads repeated a q head when neither divides the other);
+  - the embedding and the loss head are vocab-parallel: a rank looks up
+    and scores only its vocab rows (`layers.chunked_unembed_xent` with a
+    group);
+  - every leaf enters the batch axes it is not split on (its use differs
+    with the rows), and a leaf the spec replicates along "model" enters
+    "model" where it meets one rank's share (q_norm and k_norm, or a block
+    sliced from a whole leaf); the norms around a block, applied alike on
+    every model rank, do not;
+  - the MoE FFN is `moe_ffn_expert_parallel`, whose in_specs the leaves'
+    resolved specs must equal.
+
+A block whose inner dim the specs leave whole along "model" (e.g. a d_ff
+that does not split) runs alike on every model rank, with no enter and no
+psum.
 """
 
 from __future__ import annotations
@@ -39,12 +72,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh_utils import (
+    DEFAULT_RULES, LogicalRules, gather, layout as spec_layout, mesh_axes, resolve_pspec,
+    split_axes,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_VALUE
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, MoEConfig, Routing, aux_loss, moe_local_params, \
-    moe_param_specs
-from repro_torch.models.param import ParamSpec, init_params, tree_map
+from repro_torch.models.moe import MoE, MoEConfig, Routing, aux_loss, moe_ffn_expert_parallel, \
+    moe_local_params, moe_param_specs, moe_shard_specs
+from repro_torch.models.param import ParamSpec, init_params, param_pspecs, tree_map, \
+    tree_map_with
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,13 +432,306 @@ def kv_cache_pspecs(cfg: LMConfig, batch: int, max_seq: int, lr=None) -> dict:
     return {"layers": [{"k": kv, "v": kv, "pos": ()} for _ in range(cfg.n_layers)]}
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> Tuple[torch.Tensor, dict]:
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            layout: Optional["MeshLayout"] = None) -> Tuple[torch.Tensor, dict]:
     """The reference's `loss_fn(params, batch, cfg)` over the port's tree:
     batch {"tokens", "labels": (B, S)} -> (loss, {"ce", "aux"}). Gradients
     reach the tree's leaves that are `nn.Parameter`s requiring grad (a
-    `train.TrainState`'s); the model is built around them, on their device."""
+    `train.TrainState`'s); the model is built around them, on their device.
+
+    On a mesh (`layout`): this rank's shards and its batch rows; ce is the
+    mean over the global batch (the psum of the ranks' summed NLL over the
+    psum of their token counts, over the batch axes), the same on every
+    rank, as is the loss."""
+    if layout is not None:
+        return _mesh_loss_fn(params, batch, cfg, layout)
     model = Transformer(cfg, params, device=params["embed"].device)
     return model.loss_fn(batch["tokens"], batch["labels"])
+
+
+def lm_local_pspecs(cfg: LMConfig, lr: Optional[LogicalRules]) -> dict:
+    """The resolved specs (`param_pspecs`) of the port's tree, one tree a
+    layer: each layer leaf's stacked spec without its `stack` entry."""
+    stacked = param_pspecs(lm_param_specs(cfg), lr)
+    drop = lambda tree: {k: drop(v) if isinstance(v, dict) else tuple(v[1:]) if v else v
+                         for k, v in tree.items()}
+    return {**stacked, "layers": [drop(stacked["layers"][str(li % cfg.group_size)])
+                                  for li in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# the model on a mesh
+# ---------------------------------------------------------------------------
+
+
+class MeshLayout:
+    """Where the LM's leaves and activations lie on a `ProcessMesh` under
+    `rules` (default: `mesh_utils.DEFAULT_RULES`; the reference's training
+    step takes `configs.base.LM_TRAIN_RULES`): the resolved spec of every
+    leaf of the port's tree (`specs`), the batch axes, and this rank's
+    place on "model". Every rank builds it alike."""
+
+    def __init__(self, cfg: LMConfig, mesh, rules: Optional[dict] = None):
+        self.cfg, self.mesh = cfg, mesh
+        self.lr = LogicalRules(mesh, dict(rules or DEFAULT_RULES))
+        self.specs = lm_local_pspecs(cfg, self.lr)
+        axes = mesh_axes(mesh)
+        batch = self.lr._exists(self.lr.rules.get("batch"))
+        batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+        self.batch_axes = tuple(a for a in batch if axes[a] > 1)
+        self.n_model = axes.get("model", 1)
+        self.m = mesh.axis_index("model") if self.n_model > 1 else 0
+        self.g_model = mesh.group("model") if self.n_model > 1 else None
+
+    def enter_batch(self, w: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf entering the batch axes it is not split on (its use
+        differs with the rows)."""
+        cross = tuple(a for a in self.batch_axes if a not in split_axes(spec))
+        return C.enter(w, self.mesh.group(cross)) if cross else w
+
+    def use(self, w: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf as this rank uses it, whole along the batch axes: it
+        enters the batch axes it is not split on, and is gathered over
+        those it is (FSDP)."""
+        return gather(self.enter_batch(w, spec), spec, self.mesh, self.batch_axes)
+
+    def split_on_model(self, spec, dim: int) -> bool:
+        return self.n_model > 1 and "model" in spec_layout(spec).get(dim, ())
+
+    def block(self, w: torch.Tensor, spec, dim: int, ranges, parallel: bool) -> torch.Tensor:
+        """Slices `ranges` [(lo, hi), ...] of the whole leaf along `dim`,
+        concatenated, from w (`use`'s). In a model-parallel block a leaf
+        split over "model" gives its own shard or is gathered over "model"
+        (the backward sums each rank's share), and a whole leaf enters
+        "model"; in a block run alike on every model rank (its inner dim
+        whole) every leaf is whole along "model" too, since the specs
+        split a block's leaves along the same dims."""
+        if self.split_on_model(spec, dim):
+            n = w.shape[dim]
+            if list(ranges) == [(self.m * n, (self.m + 1) * n)]:
+                return w
+            if not parallel:
+                raise NotImplementedError(f"a leaf split over 'model' ({spec}) in a block "
+                                          f"whose inner dim is whole")
+            w = C.all_gather(w, self.g_model, dim)
+        elif parallel and self.n_model > 1:
+            w = C.enter(w, self.g_model)
+        if list(ranges) == [(0, w.shape[dim])]:
+            return w
+        return torch.cat([w.narrow(dim, lo, hi - lo) for lo, hi in ranges], dim)
+
+
+def _head_plan(cfg: LMConfig, lay: MeshLayout, heads_split: bool):
+    """(this rank's first q head, its q head count, its kv heads in the
+    order its q heads read them)."""
+    H, Hk = cfg.n_heads, cfg.n_kv_heads
+    G = H // Hk
+    h0, Hl = (lay.m * H // lay.n_model, H // lay.n_model) if heads_split else (0, H)
+    if Hl % G == 0:  # whole groups: their kv heads
+        kv = list(range(h0 // G, h0 // G + Hl // G))
+    elif G % Hl == 0:  # part of one group: its kv head, shared with other ranks
+        kv = [h0 // G]
+    else:  # neither: one kv head a q head
+        kv = [h // G for h in range(h0, h0 + Hl)]
+    return h0, Hl, kv
+
+
+def _col_ranges(heads, Dh: int):
+    """Column ranges of consecutive heads."""
+    out = []
+    for h in heads:
+        if out and out[-1][1] == h * Dh:
+            out[-1] = (out[-1][0], (h + 1) * Dh)
+        else:
+            out.append((h * Dh, (h + 1) * Dh))
+    return out
+
+
+def _mesh_attention(p: dict, sp: dict, x: torch.Tensor, cfg: LMConfig, kind: str,
+                    positions: torch.Tensor, lay: MeshLayout) -> Tuple[torch.Tensor, dict]:
+    B, S, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.head_dim
+    n, m = lay.n_model, lay.m
+    parallel = lay.split_on_model(sp["wo"], 0)  # wo row-parallel: psum over "model"
+    heads_split = parallel and resolve_pspec(("heads",), (H,), lay.lr) == ("model",)
+    h0, Hl, kv = _head_plan(cfg, lay, heads_split)
+    w = {k: lay.use(v, sp[k]) for k, v in p.items()}
+    qcols, kvcols = [(h0 * Dh, (h0 + Hl) * Dh)], _col_ranges(kv, Dh)
+    x_in = C.enter(x, lay.g_model) if parallel else x
+    q = x_in @ lay.block(w["wq"], sp["wq"], 1, qcols, parallel)
+    k = x_in @ lay.block(w["wk"], sp["wk"], 1, kvcols, parallel)
+    v = x_in @ lay.block(w["wv"], sp["wv"], 1, kvcols, parallel)
+    if cfg.qkv_bias:
+        q = q + lay.block(w["bq"], sp["bq"], 0, qcols, parallel)
+        k = k + lay.block(w["bk"], sp["bk"], 0, kvcols, parallel)
+        v = v + lay.block(w["bv"], sp["bv"], 0, kvcols, parallel)
+    q, k, v = q.view(B, S, Hl, Dh), k.view(B, S, len(kv), Dh), v.view(B, S, len(kv), Dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lay.block(w["q_norm"], sp["q_norm"], 0, [(0, Dh)], parallel),
+                       cfg.norm_eps)
+        k = L.rms_norm(k, lay.block(w["k_norm"], sp["k_norm"], 0, [(0, Dh)], parallel),
+                       cfg.norm_eps)
+    q = L.rope(q.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
+    k = L.rope(k.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
+    v = v.transpose(1, 2).contiguous()
+    window = cfg.window if kind == "local" else None
+    out = ops.attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
+                        allow_chunk=cfg.attn_chunk)
+    out = out.transpose(1, 2).reshape(B, S, Hl * Dh)
+    if not parallel:
+        return out @ lay.block(w["wo"], sp["wo"], 0, [(0, H * Dh)], False), {"k": k, "v": v}
+    per = H * Dh // n
+    rows = [(m * per, (m + 1) * per)]
+    if not heads_split:  # every head here: this rank's rows of wo read their columns
+        out = out[..., m * per:(m + 1) * per]
+    y = out @ lay.block(w["wo"], sp["wo"], 0, rows, True)
+    return C.psum(y, lay.g_model), {"k": k, "v": v}
+
+
+def _mesh_ffn(p: dict, sp: dict, h: torch.Tensor, cfg: LMConfig,
+              lay: MeshLayout) -> Tuple[torch.Tensor, Optional[Routing]]:
+    B, S, d = h.shape
+    if cfg.moe:
+        mc = cfg.moe_cfg()
+        want = moe_shard_specs(mc, lay.mesh)
+        if sp != want:
+            raise NotImplementedError(f"an MoE FFN on a mesh takes moe_ffn_expert_parallel's "
+                                      f"in_specs {want}; the rules resolved {sp}")
+        local = tree_map_with(lay.enter_batch, p, sp)  # it gathers over "data" itself
+        out, r = moe_ffn_expert_parallel(local, h.reshape(B * S, d), mc, lay.mesh)
+        return out.view(B, S, d), r
+    f = cfg.d_ff
+    parallel = lay.split_on_model(sp["w_down"], 0)
+    rng = [(lay.m * f // lay.n_model, (lay.m + 1) * f // lay.n_model)] if parallel else [(0, f)]
+    w = {k: lay.use(v, sp[k]) for k, v in p.items()}
+    h_in = C.enter(h, lay.g_model) if parallel else h
+    y = L.swiglu(h_in, lay.block(w["w_gate"], sp["w_gate"], 1, rng, parallel),
+                 lay.block(w["w_up"], sp["w_up"], 1, rng, parallel),
+                 lay.block(w["w_down"], sp["w_down"], 0, rng, parallel))
+    return (C.psum(y, lay.g_model) if parallel else y), None
+
+
+def _mesh_layer(p: dict, sp: dict, x: torch.Tensor, cfg: LMConfig, kind: str,
+                positions: torch.Tensor, lay: MeshLayout):
+    """`_layer` on a mesh: (x, the MoE `Routing` or None, this rank's KV)."""
+    n = {k: lay.use(v, sp[k]) for k, v in p.items() if k not in ("attn", "ffn")}
+    h = L.rms_norm(x, n["input_norm"], cfg.norm_eps)
+    attn_out, kv = _mesh_attention(p["attn"], sp["attn"], h, cfg, kind, positions, lay)
+    if cfg.post_norms:
+        attn_out = L.rms_norm(attn_out, n["post_attn_out_norm"], cfg.norm_eps)
+    x = x + attn_out
+    h = L.rms_norm(x, n["post_attn_norm"], cfg.norm_eps)
+    ffn_out, routing = _mesh_ffn(p["ffn"], sp["ffn"], h, cfg, lay)
+    if cfg.post_norms:
+        ffn_out = L.rms_norm(ffn_out, n["post_ffn_norm"], cfg.norm_eps)
+    return x + ffn_out, routing, kv
+
+
+def _mesh_group(layers, specs, kinds, x, aux, positions, cfg, lay):
+    for p, sp, kind in zip(layers, specs, kinds):
+        x, r, _ = _mesh_layer(p, sp, x, cfg, kind, positions, lay)
+        if r is not None:
+            aux = aux + aux_loss(r)
+    return x, aux
+
+
+def _mesh_embed(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                lay: MeshLayout) -> torch.Tensor:
+    """The vocab-parallel lookup: this rank's rows for the ids it owns, 0
+    for the others, psum'd over "model"."""
+    sp = lay.specs["embed"]
+    emb = lay.use(params["embed"], sp)
+    if lay.split_on_model(sp, 0):
+        v_loc = emb.shape[0]
+        ids = tokens.long() - lay.m * v_loc
+        mine = (ids >= 0) & (ids < v_loc)
+        x = F.embedding(ids.clamp(0, v_loc - 1), emb)
+        x = C.psum(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device)), lay.g_model)
+    else:
+        x = F.embedding(tokens.long(), emb)
+    x = x.to(cfg.dtype)
+    if cfg.embed_scale:
+        s = torch.tensor(np.sqrt(cfg.d_model).astype(np.float32), device=x.device)
+        x = x * s.to(cfg.dtype)
+    return x
+
+
+def trunk(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+          layout: MeshLayout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `trunk` on a mesh, differentiable: this rank's shards
+    `params` and its batch rows tokens (B_loc, S) -> (x (B_loc, S, d) after
+    the final norm, the same on every model rank; aux, the MoE layers'
+    load-balance losses summed, each averaged over the batch axes). Each
+    layer group runs under `torch.utils.checkpoint` when `cfg.remat`: its
+    backward gathers its weights again."""
+    lay = layout
+    B, S = tokens.shape
+    x = _mesh_embed(params, tokens, cfg, lay)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), device=x.device)
+    G = cfg.group_size
+    for g in range(cfg.n_groups):
+        sl = slice(g * G, (g + 1) * G)
+        args = (params["layers"][sl], lay.specs["layers"][sl], cfg.pattern, x, aux, positions,
+                cfg, lay)
+        if cfg.remat:
+            x, aux = checkpoint(_mesh_group, *args, use_reentrant=False)
+        else:
+            x, aux = _mesh_group(*args)
+    fn = lay.use(params["final_norm"], lay.specs["final_norm"])
+    return L.rms_norm(x, fn, cfg.norm_eps), aux
+
+
+def _unembed(params: dict, lay: MeshLayout):
+    """(this rank's unembed columns, whole along the batch axes; the first
+    vocab id among them; whether the vocab is split over "model")."""
+    sp = lay.specs["unembed"]
+    u = lay.use(params["unembed"], sp)
+    split = lay.split_on_model(sp, 1)
+    return u, (lay.m * u.shape[1] if split else 0), split
+
+
+def _mesh_loss_fn(params: dict, batch: dict, cfg: LMConfig,
+                  lay: MeshLayout) -> Tuple[torch.Tensor, dict]:
+    x, aux = trunk(params, batch["tokens"], cfg, lay)
+    u, lo, split = _unembed(params, lay)
+    if split:
+        x = C.enter(x, lay.g_model)
+    nll = L.chunked_unembed_xent(x, u, batch["labels"], cap=cfg.final_softcap,
+                                 chunk=cfg.xent_chunk, group=lay.g_model if split else None,
+                                 vocab_lo=lo, mean=False)
+    count = torch.full((), float(batch["labels"].numel()), device=nll.device)
+    if lay.batch_axes:
+        g = lay.mesh.group(lay.batch_axes)
+        nll, count = C.psum(nll, g), C.psum(count, g)
+    ce = nll / count
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+@torch.no_grad()
+def prefill_forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                    layout: MeshLayout) -> Tuple[torch.Tensor, dict]:
+    """The reference's `prefill_forward` on a mesh: this rank's shards and
+    its batch rows tokens (B_loc, S) -> (its block of the last position's
+    float32 logits, (B_loc, V_loc) where the vocab splits over "model";
+    the KV stack of the heads it computed, {pattern index: {"k", "v":
+    (n_groups, B_loc, its kv heads, S, Dh)}})."""
+    lay = layout
+    B, S = tokens.shape
+    x = _mesh_embed(params, tokens, cfg, lay)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    kvs = []
+    for li, (p, sp) in enumerate(zip(params["layers"], lay.specs["layers"])):
+        x, _, kv = _mesh_layer(p, sp, x, cfg, cfg.pattern[li % cfg.group_size], positions, lay)
+        kvs.append(kv)
+    x = L.rms_norm(x, lay.use(params["final_norm"], lay.specs["final_norm"]), cfg.norm_eps)
+    u, _, _ = _unembed(params, lay)
+    logits = L.softcap((x[:, -1:, :] @ u).float(), cfg.final_softcap)[:, 0]
+    G = cfg.group_size
+    stack = {str(i): {n: torch.stack([kv[n] for kv in kvs[i::G]]) for n in ("k", "v")}
+             for i in range(G)}
+    return logits, stack
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,35 @@ def opt_state_pspecs(param_specs_tree) -> dict:
             "v": tree_map(lambda s: s, param_specs_tree), "count": ()}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.
+
+    Over a sharded tree (`specs`, a spec tree of the same structure, on a
+    `ProcessMesh`): each leaf's sum of squares is psum'd over the axes it
+    is split on and counted once along the axes that replicate it (its
+    value is the same on each of their ranks), so the norm, and the clip
+    and non-finite skip that read it, are the same on every rank. The
+    leaves split over the same axes are summed first, one psum a set."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.mesh_utils import split_axes
+    from repro_torch.models.param import tree_map_with
+
+    sums: Dict[tuple, torch.Tensor] = {}
+
+    def add(x, spec):
+        named = set(split_axes(spec))
+        key = tuple(a for a in mesh.axes if a in named and mesh.axis_size(a) > 1)
+        sq = torch.sum(torch.square(x.float()))
+        sums[key] = sq if key not in sums else sums[key] + sq
+
+    tree_map_with(add, tree, specs)
+    total = None
+    for key in sorted(sums, key=lambda k: (len(k), k)):
+        part = C.psum(sums[key], mesh.group(key)) if key else sums[key]
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()

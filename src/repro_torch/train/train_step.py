@@ -7,6 +7,13 @@ gradients to them); its optimizer state is `optim.adamw_init`'s. The step
 is a plain function (no jit, no donation): it updates the state's tensors
 in place and returns the state with `step` advanced, and it never syncs
 with the host.
+
+On a mesh (`make_train_step(..., mesh=, specs=)`): the state holds this
+rank's shards of the parameters and of m and v, the loss function is a
+per-rank one whose loss is the global batch's mean on every rank (e.g.
+`models.transformer.loss_fn` with a `MeshLayout`), the global norm is
+taken over the shards (`optim.global_norm` with the specs), and AdamW
+updates each rank's shards in place.
 """
 
 from __future__ import annotations
@@ -106,19 +113,21 @@ def accum_value_and_grad(loss_fn: Callable, accum: int):
 
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig = AdamWConfig(),
                     warmup: int = 100, total_steps: int = 10_000,
-                    skip_nonfinite: bool = True, grad_accum: int = 1):
+                    skip_nonfinite: bool = True, grad_accum: int = 1, mesh=None, specs=None):
     """(state, batch) -> (state, metrics): gradients (`accum_value_and_grad`),
     the `warmup_cosine` learning rate of `state.step`, and an in-place AdamW
     update. skip_nonfinite: a non-finite global gradient norm or loss keeps
     every leaf as it was (a `torch.where` per leaf, no host sync) and sets
     metrics["skipped"] to 1. Metrics: the loss function's, `loss`, `lr`,
-    `grad_norm` and `skipped`."""
+    `grad_norm` and `skipped`. With a `mesh` (a `ProcessMesh`) and `specs`
+    (the parameters' spec tree), the state is this rank's shards and every
+    rank calls the step at once."""
     vg = accum_value_and_grad(loss_fn, grad_accum)
 
     def step_fn(state: TrainState, batch: dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         (loss, metrics), grads = vg(state.params, batch)
         lr = warmup_cosine(state.step, opt_cfg.lr, warmup, total_steps)
-        gn = global_norm(grads)
+        gn = global_norm(grads, specs, mesh)
         ok = None
         if skip_nonfinite:
             ok = torch.isfinite(gn) & torch.isfinite(loss)

@@ -1,5 +1,6 @@
 """The cases of the port's sharded-path tests (`test_torch_moe_distributed.py`,
-`test_torch_dist_gnn.py`, `test_torch_grad_compression.py`), shared by the
+`test_torch_dist_gnn.py`, `test_torch_grad_compression.py`,
+`test_torch_lm_mesh.py`, `test_torch_checkpoint_mesh.py`), shared by the
 reference runner (`_sharded_ref.py`, JAX on 4 host devices) and the port's
 workers (`_torch_sharded.py`, 4 gloo ranks): numpy and plain values only.
 
@@ -59,6 +60,78 @@ GNN_CASES["pna-tight"] = ("pna", 128, 1)
 # --- gradient compression over a "pod" axis of 4 ------------------------
 GC_SHAPES = {"w": (8, 16), "b": (5,), "e": (3, 4, 6)}  # a rank's leaf
 GC_STEPS = 2
+
+
+# --- the LM step on a mesh: the smoke configs under LM_TRAIN_RULES ---------
+# name -> (arch, mesh shape, mesh axes, the smoke config's fields changed).
+# At (1, 4) the smoke configs' 2 kv heads are fewer than the model ranks:
+# each rank reads the one kv head its q head needs, gathered over "model".
+# 12 q heads over 6 kv heads at (1, 4) gives a rank 3 q heads from two
+# groups of 2: neither divides the other, so its kv heads repeat.
+POD = ("pod", "data", "model")
+LM_CASES = {
+    "qwen3-4b/2x2": ("qwen3-4b", (2, 2), AXES, {}),
+    "qwen3-4b/1x4": ("qwen3-4b", (1, 4), AXES, {}),
+    "qwen3-4b/pod2x1x2": ("qwen3-4b", (2, 1, 2), POD, {}),
+    "qwen3-4b/2x2-chunked": ("qwen3-4b", (2, 2), AXES, {"xent_chunk": 8}),
+    "qwen3-4b/1x4-12x6-heads": ("qwen3-4b", (1, 4), AXES, {"n_heads": 12, "n_kv_heads": 6}),
+    # d_ff 130 does not split 4 ways: the FFN's leaves stay whole along
+    # "model" and every model rank runs the FFN alike, with no psum
+    "qwen3-4b/1x4-whole-ffn": ("qwen3-4b", (1, 4), AXES, {"d_ff": 130}),
+    "gemma2-27b/2x2": ("gemma2-27b", (2, 2), AXES, {}),
+    "gemma2-27b/1x4": ("gemma2-27b", (1, 4), AXES, {}),
+    "gemma2-27b/pod2x1x2": ("gemma2-27b", (2, 1, 2), POD, {}),
+    "qwen2.5-14b/2x2": ("qwen2.5-14b", (2, 2), AXES, {}),
+    "qwen2.5-14b/1x4": ("qwen2.5-14b", (1, 4), AXES, {}),
+    "qwen2.5-14b/pod2x1x2": ("qwen2.5-14b", (2, 1, 2), POD, {}),
+    # T_loc k = 24 x 2 <= 64: the weight-stationary regime, which routes the
+    # data shards' tokens together, as one device does
+    "qwen2-moe-a2.7b/2x2": ("qwen2-moe-a2.7b", (2, 2), AXES, {}),
+}
+LM_BATCH, LM_SEQ = 2, 24
+LM_STEPS = 2  # warmup 1: step 0's learning rate is 0, step 1's the base rate
+LM_CKPT_CASE = "qwen3-4b/2x2"  # saved on (2, 2), restored on (1, 4) and one device
+LM_REF_SHARDED_CASE = "qwen3-4b/2x2"  # against the reference's own sharded step
+
+
+LM_REF_PROCS = 2  # the reference's unsharded steps, in this many processes
+
+
+def lm_variant(name: str) -> str:
+    """The unsharded step a case is held to: its arch and changed fields
+    (the mesh does not change it)."""
+    arch, _, _, over = LM_CASES[name]
+    return arch + "".join(f",{k}={v}" for k, v in sorted(over.items()))
+
+
+def lm_variants() -> list:
+    return sorted({lm_variant(n) for n in LM_CASES})
+
+
+def lm_tokens(vocab: int):
+    """(tokens, labels) (LM_BATCH, LM_SEQ) int32."""
+    rng = np.random.default_rng(11)
+    return (rng.integers(0, vocab, (LM_BATCH, LM_SEQ)).astype(np.int32),
+            rng.integers(0, vocab, (LM_BATCH, LM_SEQ)).astype(np.int32))
+
+
+def lm_params(specs_flat: dict) -> dict:
+    """{path: leaf} of the reference's stacked tree, from its {path: shape}."""
+    return draw_tree(specs_flat, 2)
+
+
+def flatten_specs(tree, prefix: str = "") -> dict:
+    """A tree of dicts and lists with spec tuples at its leaves -> {path: spec}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_specs(v, f"{prefix}{k}/"))
+    return out
 
 
 def gnn_needs_pos(arch: str) -> bool:
@@ -131,15 +204,19 @@ def gc_grads(step: int) -> dict:
             for k, s in GC_SHAPES.items()}
 
 
-def mesh_coords(rank: int, mesh) -> dict:
-    """{"data": i, "model": j} of a rank on a (data, model) mesh, row-major."""
-    return {"data": rank // mesh[1], "model": rank % mesh[1]}
+def mesh_coords(rank: int, mesh, axes=AXES) -> dict:
+    """{axis: coordinate} of a rank on a mesh of these axes, row-major."""
+    out = {}
+    for a, n in reversed(list(zip(axes, mesh))):
+        out[a], rank = rank % n, rank // n
+    return out
 
 
-def block(x: np.ndarray, spec, rank: int, mesh) -> np.ndarray:
-    """Rank's block of x under a spec of axis names (None, "data", "model",
-    or ("data", "model") flattened data-major) on a (data, model) mesh."""
-    c, size = mesh_coords(rank, mesh), dict(zip(AXES, mesh))
+def block(x: np.ndarray, spec, rank: int, mesh, axes=AXES) -> np.ndarray:
+    """Rank's block of x under a spec of axis names (None, an axis, or a
+    tuple of axes flattened in its order) on a mesh of these axes (default
+    (data, model))."""
+    c, size = mesh_coords(rank, mesh, axes), dict(zip(axes, mesh))
     for dim, entry in enumerate(spec):
         if entry is None:
             continue

@@ -7,7 +7,15 @@ the JAX package and writes the inputs it made and the outputs to one .npz.
 
 WHAT: "moe" (`moe_ffn` under a mesh: `_moe_ffn_shard_map`), "gnn:ARCH" or
 "gnn:pna-tight" (`make_dist_gnn_loss`, `prepare_dist_inputs`, the gather's
-served masks), "compression" (`compressed_psum` over a "pod" axis).
+served masks), "compression" (`compressed_psum` over a "pod" axis), "lm"
+(the LM training step jitted on a (2, 2) mesh under `LM_TRAIN_RULES`,
+bound as the reference's dry run binds it: `bind_rules`, `NamedSharding`s
+from the logical specs; each device's shards after `C.LM_STEPS` steps),
+"lm-collectives" (the same step, remat off, compiled: the reference's
+`parse_collectives` of its HLO, count and bytes by kind), "lm-unsharded:I"
+(the unsharded steps of every I-th of `C.lm_variants()`:
+the loss and gradients, `C.LM_STEPS` steps of `make_train_step`, then the
+prefill's last logits).
 """
 
 from __future__ import annotations
@@ -137,6 +145,106 @@ def compression(out: dict) -> None:
             out[f"{t}/scale/{k}"] = np.asarray(scale[k])
 
 
+def lm(out: dict, collectives: bool = False) -> None:
+    import dataclasses
+
+    from repro.configs import get_arch
+    from repro.configs.base import LM_TRAIN_RULES, bind_rules, merged_rules, named
+    from repro.distributed.mesh_utils import resolve_pspec, set_mesh_rules
+    from repro.models import transformer as T
+    from repro.models.param import param_pspecs
+    from repro.optim.adamw import AdamWConfig, adamw_update, opt_state_pspecs
+    from repro.optim.schedule import warmup_cosine
+    from repro.train.train_step import TrainState, accum_value_and_grad, init_train_state
+
+    arch, shape, axes, over = C.LM_CASES[C.LM_REF_SHARDED_CASE]
+    cfg = dataclasses.replace(get_arch(arch).smoke_cfg(), **over)
+    if collectives:  # the step `_lm_collectives.py` sets beside the port's count
+        cfg = dataclasses.replace(cfg, remat=False)
+    specs = T.lm_param_specs(cfg)
+    flat = C.lm_params({k: s.shape for k, s in C.flatten(specs).items()})
+    params = C.unflatten({k: jnp.asarray(v) for k, v in flat.items()}, specs)
+    tokens, labels = C.lm_tokens(cfg.vocab)
+    mesh = mesh_of(shape, axes)
+    rules = merged_rules(LM_TRAIN_RULES)
+    with set_mesh_rules(mesh, rules) as lr:
+        pspecs = param_pspecs(specs, lr)
+        tok = resolve_pspec(("batch", "seq"), tokens.shape, lr)
+    state_sh = TrainState(params=pspecs, opt_state=opt_state_pspecs(pspecs), step=P())
+    batch_sh = {"tokens": tok, "labels": tok}
+    opt = AdamWConfig()
+    vg = accum_value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), 1)
+
+    def train_step(st, b):  # make_train_step's body at warmup 1, total 10
+        (loss, metrics), grads = vg(st.params, b)
+        lr_now = warmup_cosine(st.step, opt.lr, 1, 10)
+        new_p, new_o, om = adamw_update(grads, st.opt_state, st.params, opt, lr=lr_now)
+        return TrainState(params=new_p, opt_state=new_o, step=st.step + 1), dict(
+            metrics, loss=loss, **om)
+
+    step = jax.jit(bind_rules(train_step, mesh, rules),
+                   in_shardings=(named(mesh, state_sh), named(mesh, batch_sh)),
+                   out_shardings=(named(mesh, state_sh), None))
+    state = jax.device_put(init_train_state(params), named(mesh, state_sh))
+    batch = jax.device_put({"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+                           named(mesh, batch_sh))
+    if collectives:
+        from repro.analysis.roofline import parse_collectives
+
+        stats = parse_collectives(step.lower(state, batch).compile().as_text(), n_devices=4)
+        for kind, n in stats.counts.items():
+            out[f"count/{kind}"] = np.asarray(n)
+            out[f"bytes/{kind}"] = np.asarray(stats.bytes_by_kind[kind])
+        return
+    for i in range(C.LM_STEPS):
+        state, m = step(state, batch)
+        out[f"step{i}/loss"] = np.asarray(m["loss"])
+        out[f"step{i}/grad_norm"] = np.asarray(m["grad_norm"])
+    devices = list(mesh.devices.flat)
+    for part, tree in (("p", state.params), ("m", state.opt_state["m"]),
+                       ("v", state.opt_state["v"])):
+        for k, a in C.flatten(tree).items():
+            for sh in a.addressable_shards:
+                out[f"{part}/{k}/{devices.index(sh.device)}"] = np.asarray(sh.data)
+
+
+def lm_unsharded(out: dict, part: int) -> None:
+    import dataclasses
+
+    from repro.configs import get_arch
+    from repro.models import transformer as T
+    from repro.train.train_step import init_train_state, make_train_step
+
+    for variant in C.lm_variants()[part::C.LM_REF_PROCS]:
+        name = next(n for n in C.LM_CASES if C.lm_variant(n) == variant)
+        arch, _, _, over = C.LM_CASES[name]
+        cfg = dataclasses.replace(get_arch(arch).smoke_cfg(), **over)
+        specs = T.lm_param_specs(cfg)
+        flat = C.lm_params({k: s.shape for k, s in C.flatten(specs).items()})
+        params = C.unflatten({k: jnp.asarray(v) for k, v in flat.items()}, specs)
+        tokens, labels = C.lm_tokens(cfg.vocab)
+        batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: T.loss_fn(p, b, cfg), has_aux=True))(params, batch)
+        out[f"{variant}/loss"] = np.asarray(loss)
+        out.update({f"{variant}/grad/{k}": np.asarray(v) for k, v in C.flatten(grads).items()})
+        step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg), warmup=1, total_steps=10,
+                               donate=False)
+        state = init_train_state(params)
+        for i in range(C.LM_STEPS):
+            state, m = step(state, batch)
+            out[f"{variant}/step{i}/loss"] = np.asarray(m["loss"])
+            out[f"{variant}/step{i}/grad_norm"] = np.asarray(m["grad_norm"])
+        for tag, tree in (("p", state.params), ("m", state.opt_state["m"]),
+                          ("v", state.opt_state["v"])):
+            out.update({f"{variant}/{tag}/{k}": np.asarray(v)
+                        for k, v in C.flatten(tree).items()})
+        icfg = dataclasses.replace(cfg, remat=False)
+        last, _ = jax.jit(lambda p, t: T.prefill_forward(p, t, icfg))(state.params,
+                                                                       batch["tokens"])
+        out[f"{variant}/last"] = np.asarray(last)
+
+
 def main(what: str, path: str) -> None:
     out: dict = {}
     if what == "moe":
@@ -145,6 +253,12 @@ def main(what: str, path: str) -> None:
         gnn(out, what[4:])
     elif what == "compression":
         compression(out)
+    elif what == "lm":
+        lm(out)
+    elif what == "lm-collectives":
+        lm(out, collectives=True)
+    elif what.startswith("lm-unsharded:"):
+        lm_unsharded(out, int(what.split(":")[1]))
     else:
         raise SystemExit(f"unknown group {what!r}")
     np.savez(path, **out)

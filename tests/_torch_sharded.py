@@ -7,6 +7,7 @@ functions. Each returns numpy arrays.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -252,3 +253,119 @@ def collectives_all(rank: int, world: int, store_dir: str) -> dict:
         out[f"shard/{i}"] = local_shard(x, spec, mesh).numpy()
     dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the LM step on a mesh
+# ---------------------------------------------------------------------------
+
+
+def lm_case(name: str):
+    """(the port's config of case `name`, its parameters as the port's
+    per-layer tree of CPU tensors, tokens, labels)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import lm_param_specs, unstack_layers
+
+    arch, _, _, over = C.LM_CASES[name]
+    cfg = dataclasses.replace(get_arch(arch).smoke_cfg(), **over)
+    specs = lm_param_specs(cfg)
+    flat = C.lm_params({k: s.shape for k, s in C.flatten(specs).items()})
+    tree = unstack_layers(C.unflatten({k: torch.from_numpy(v) for k, v in flat.items()}, specs),
+                          cfg)
+    tokens, labels = C.lm_tokens(cfg.vocab)
+    return cfg, tree, torch.from_numpy(tokens), torch.from_numpy(labels)
+
+
+def _lm_meshes(store_dir: str, name: str, rank: int) -> dict:
+    mesh = _init(store_dir, name, rank, (2, 2), C.AXES)
+    return {((2, 2), C.AXES): mesh, ((1, 4), C.AXES): ProcessMesh((1, 4), C.AXES),
+            ((2, 1, 2), C.POD): ProcessMesh((2, 1, 2), C.POD)}
+
+
+def _lm_rank_batch(lay, tokens, labels):
+    """This rank's rows of the batch (its block over the batch axes)."""
+    from repro_torch.distributed.mesh_utils import local_shard, resolve_pspec
+
+    spec = resolve_pspec(("batch", "seq"), tuple(tokens.shape), lay.lr)
+    return {"tokens": local_shard(tokens, spec, lay.mesh),
+            "labels": local_shard(labels, spec, lay.mesh)}
+
+
+def lm_mesh_run(name: str, mesh, ckpt_dir=None) -> dict:
+    """Case `name` on this rank: the loss and every leaf's gradient (its
+    shards), then LM_STEPS train steps (warmup 1) with each step's loss and
+    grad norm and the updated shards of the parameters, m and v, then the
+    prefill's last logits (its vocab block). With ckpt_dir, the trained
+    state is saved there (whole leaves, rank 0 writing)."""
+    from repro_torch.checkpoint.checkpointer import save_checkpoint
+    from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules
+    from repro_torch.models.param import local_params, tree_map
+    from repro_torch.models.transformer import MeshLayout, loss_fn, prefill_forward
+    from repro_torch.optim.adamw import opt_state_pspecs
+    from repro_torch.train.train_step import (
+        TrainState, accum_value_and_grad, init_train_state, make_train_step,
+    )
+
+    cfg, tree, tokens, labels = lm_case(name)
+    lay = MeshLayout(cfg, mesh, merged_rules(LM_TRAIN_RULES))
+    batch = _lm_rank_batch(lay, tokens, labels)
+    local = local_params(tree, lay.specs, mesh)
+    loss_of = lambda p, b: loss_fn(p, b, cfg, lay)
+    state = init_train_state(local)
+    (loss, parts), grads = accum_value_and_grad(loss_of, 1)(state.params, batch)
+    out = {"loss": loss.detach().numpy(), "aux": parts["aux"].detach().numpy()}
+    out.update({f"grad/{k}": v.numpy() for k, v in C.flatten(grads).items()})
+    step = make_train_step(loss_of, warmup=1, total_steps=10, mesh=mesh, specs=lay.specs)
+    for i in range(C.LM_STEPS):
+        state, m = step(state, batch)
+        out[f"step{i}/loss"] = m["loss"].detach().numpy()
+        out[f"step{i}/grad_norm"] = m["grad_norm"].numpy()
+    for part, t in (("p", state.params), ("m", state.opt_state["m"]),
+                    ("v", state.opt_state["v"])):
+        out.update({f"{part}/{k}": v.detach().numpy() for k, v in C.flatten(t).items()})
+    icfg = dataclasses.replace(cfg, remat=False)
+    last, _ = prefill_forward(tree_map(lambda p: p.detach(), state.params), batch["tokens"],
+                              icfg, MeshLayout(icfg, mesh, merged_rules(LM_TRAIN_RULES)))
+    out["last"] = last.numpy()
+    if ckpt_dir is not None:
+        specs = TrainState(lay.specs, opt_state_pspecs(lay.specs), ())
+        save_checkpoint(ckpt_dir, C.LM_STEPS, state, mesh=mesh, specs=specs)
+    return out
+
+
+def lm_mesh_all(rank: int, world: int, store_dir: str) -> dict:
+    """Every case of `C.LM_CASES` on this rank: {case: `lm_mesh_run`'s}."""
+    meshes = _lm_meshes(store_dir, "lm", rank)
+    out = {name: lm_mesh_run(name, meshes[shape, axes])
+           for name, (_, shape, axes, _) in C.LM_CASES.items()}
+    dist.destroy_process_group()
+    return out
+
+
+def lm_checkpoint_all(rank: int, world: int, store_dir: str, ckpt_dir: str) -> dict:
+    """`C.LM_CKPT_CASE` trained on (2, 2) and saved to ckpt_dir; then
+    restored on (1, 4) into a state of zeros: {"saved": the (2, 2) shards
+    this rank saved, "restored": its (1, 4) shards}."""
+    from repro_torch.checkpoint.checkpointer import restore_checkpoint
+    from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules
+    from repro_torch.models.param import local_params, tree_map
+    from repro_torch.models.transformer import MeshLayout
+    from repro_torch.optim.adamw import opt_state_pspecs
+    from repro_torch.train.train_step import TrainState, init_train_state
+
+    meshes = _lm_meshes(store_dir, "ckpt", rank)
+    name = C.LM_CKPT_CASE
+    saved = lm_mesh_run(name, meshes[(2, 2), C.AXES], ckpt_dir)
+    cfg, tree, _, _ = lm_case(name)
+    mesh = meshes[(1, 4), C.AXES]
+    lay = MeshLayout(cfg, mesh, merged_rules(LM_TRAIN_RULES))
+    like = init_train_state(tree_map(torch.zeros_like, local_params(tree, lay.specs, mesh)))
+    specs = TrainState(lay.specs, opt_state_pspecs(lay.specs), ())
+    state, step = restore_checkpoint(ckpt_dir, None, like, mesh=mesh, specs=specs)
+    restored = {"step": state.step.numpy(), "count": state.opt_state["count"].numpy()}
+    for part, t in (("p", state.params), ("m", state.opt_state["m"]),
+                    ("v", state.opt_state["v"])):
+        restored.update({f"{part}/{k}": v.detach().numpy() for k, v in C.flatten(t).items()})
+    dist.destroy_process_group()
+    return {"saved": {k: v for k, v in saved.items() if k[:2] in ("p/", "m/", "v/")},
+            "restored": restored, "step": step}

@@ -1,0 +1,140 @@
+"""The dry run's sharded counts: a per-rank step run on meta tensors as
+rank 0 of a `fake` process group (`launch/dryrun.py` `fake_process_mesh`,
+`analysis/roofline.py` `count_step(per_rank=True)`).
+
+  - The Qwen3-4B smoke config's training step on (data, model) (2, 2)
+    under `LM_TRAIN_RULES`, remat off, on rank 0's meta shards: each c10d
+    kind's output bytes equal a reckoning by hand from the leaves' shapes
+    and specs (every FSDP gather and its reduce-scatter's all-to-all, the
+    psums that close each block, the entered activations' and leaves'
+    backward psums, the vocab-parallel loss's max and sums, the loss's
+    psums over the batch axis, the global norm's one psum a set of axes).
+  - The reckoned peak (`temp_bytes`: the live storage the step allocates)
+    grows with the local batch, and the peak per device exceeds the state.
+  - A production cell, Qwen3-4B train_4k on 16x16, as rank 0 of a fake
+    world of 256: non-null collective bytes, temporaries and a collective
+    term; the sharded ogb_products step likewise.
+  - A collective over a group rank 0 is not in runs no op, so the dry run
+    counts rank 0's own collectives only.
+"""
+
+import dataclasses
+import math
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from _torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
+from repro_torch.analysis.roofline import count_step
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules, train_step_fn
+from repro_torch.distributed.mesh_utils import layout, local_shard, resolve_pspec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models.param import abstract_params, local_params, tree_leaves
+from repro_torch.models.transformer import MeshLayout, lm_param_specs, loss_fn, unstack_layers
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.train.train_step import TrainState, trainable
+
+MESH = MeshShape(("data", "model"), (2, 2))
+SEQ = 24
+
+
+def _step(batch: int):
+    """(the smoke step's StepCount at a global batch, the config, its
+    layout's specs, rank 0's state bytes)."""
+    cfg = dataclasses.replace(get_arch("qwen3-4b").smoke_cfg(), remat=False)
+    rules = merged_rules(LM_TRAIN_RULES)
+    with dryrun.fake_process_mesh(MESH) as mesh:
+        lay = MeshLayout(cfg, mesh, rules)
+        params = trainable(local_params(unstack_layers(abstract_params(lm_param_specs(cfg)),
+                                                       cfg), lay.specs, mesh))
+        state = TrainState(params, adamw_init(params), torch.empty((), dtype=torch.int32,
+                                                                   device="meta"))
+        spec = resolve_pspec(("batch", "seq"), (batch, SEQ), lay.lr)
+        tok = torch.empty((batch, SEQ), dtype=torch.int32, device="meta")
+        b = {"tokens": local_shard(tok, spec, mesh), "labels": local_shard(tok, spec, mesh)}
+        fn = train_step_fn(lambda p, bb: loss_fn(p, bb, cfg, lay), AdamWConfig(), mesh=mesh,
+                           specs=lay.specs)
+        _, count = count_step(fn, (state, b), per_rank=True)
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)) * 3 + 4 + 4
+    return count, cfg, lay.specs, nbytes
+
+
+def _reckoned(cfg, specs, batch: int) -> dict:
+    """Each kind's output bytes of the step, by hand (float32 smoke config,
+    rank 0 of (2, 2), B_loc = batch / 2 rows of SEQ)."""
+    sizes = dict(zip(MESH.axes, MESH.sizes))
+    rows = batch // sizes["data"] * SEQ  # tokens a rank
+    d, V, Dh = cfg.d_model, cfg.vocab, cfg.head_dim
+    f32 = 4
+
+    def local(shape, spec):
+        n = math.prod(sizes[a] for axes in layout(spec).values() for a in axes)
+        return math.prod(shape) * f32 // n
+
+    gathered = 0  # each leaf gathered over "data" once in the forward
+    leaves = [("embed", (V, d), specs["embed"]), ("unembed", (d, V), specs["unembed"]),
+              ("final_norm", (d,), specs["final_norm"])]
+    shapes = {"wq": (d, cfg.n_heads * Dh), "wk": (d, cfg.n_kv_heads * Dh),
+              "wv": (d, cfg.n_kv_heads * Dh), "wo": (cfg.n_heads * Dh, d),
+              "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d),
+              "input_norm": (d,), "post_attn_norm": (d,), "q_norm": (Dh,), "k_norm": (Dh,)}
+    for sp in specs["layers"]:
+        flat = dict(sp["attn"], **sp["ffn"], input_norm=sp["input_norm"],
+                    post_attn_norm=sp["post_attn_norm"])
+        leaves += [(k, shapes[k], s) for k, s in flat.items()]
+    for _, shape, spec in leaves:
+        if "data" in layout(spec).get(0, ()) + layout(spec).get(1, ()):
+            gathered += local(shape, spec) * sizes["data"]
+    act = rows * d * f32  # one (B_loc, S, d) activation
+    n_layers = cfg.n_layers
+    reduce = (act  # the embedding's psum
+              + n_layers * 2 * act  # attention's and the FFN's psums
+              + 3 * rows * f32  # the loss head: max, sum of exps, the label's logit
+              + 2 * f32  # the loss's psums over "data": summed NLL, token count
+              # the backward: the entered activations (attention, FFN, loss head)
+              + n_layers * 2 * act + act
+              # q_norm and k_norm enter "data" (not split on it) and "model"
+              + n_layers * 2 * 2 * Dh * f32
+              + 2 * f32)  # the global norm: the ("data",) and ("data", "model") sets
+    return {"all-gather": gathered, "all-to-all": gathered, "all-reduce": reduce}
+
+
+def test_collective_bytes_equal_a_reckoning_by_hand():
+    count, cfg, specs, _ = _step(2)
+    want = _reckoned(cfg, specs, 2)
+    assert count.collective_bytes_by_kind == {k: float(v) for k, v in want.items()}
+    assert count.collective_bytes == sum(want.values())
+    assert count.inter_node_bytes == 0.0  # four ranks: one node
+
+
+def test_reckoned_peak_grows_with_the_local_batch():
+    small, _, _, state = _step(2)
+    large, _, _, _ = _step(4)
+    assert 0 < small.temp_bytes < large.temp_bytes
+    assert small.temp_bytes + state > state
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-4b", "train_4k"), ("pna", "ogb_products")])
+def test_production_cell_counted_as_rank_zero_of_256(arch, shape):
+    rec = dryrun.run_cell(arch, shape, "single", None)
+    r, m = rec["roofline"], rec["memory"]
+    assert rec["status"] == "ok" and rec["counted_on"] == "rank0" and rec["meta"]["per_rank"]
+    assert r["collective_bytes"] > 0 and r["t_collective_s"] > 0
+    assert set(r["collectives"]) >= {"all-reduce", "all-to-all"}
+    assert m["temp_bytes"] > 0 and m["peak_bytes"] == m["argument_bytes"] + m["temp_bytes"]
+    assert "collective" in r["bottleneck_over"]
+    assert "x None" not in dryrun.result_line(rec)
+
+
+def test_a_group_without_rank_zero_runs_no_op():
+    with dryrun.fake_process_mesh(MESH) as mesh:
+        others = dist.new_group([1, 2, 3])
+        x = torch.empty(8, device="meta")
+        _, none = count_step(lambda: dist.all_reduce(x, group=others), (), per_rank=True)
+        _, one = count_step(lambda: dist.all_reduce(x, group=mesh.group("model")), (),
+                            per_rank=True)
+    assert none.collectives == {} and none.collective_bytes == 0
+    assert one.collectives == {"all-reduce": 1} and one.collective_bytes == 8 * 4

@@ -24,7 +24,7 @@ from repro.configs import din as rdin
 from repro.distributed import mesh_utils as rmu
 from repro.models import param as rparam
 from repro_torch.analysis import roofline as roof
-from repro_torch.configs import base, qwen3_4b
+from repro_torch.configs import base, get_arch, qwen3_4b
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
@@ -236,8 +236,11 @@ def test_dryrun_cells_it_cannot_count_give_state_and_reason():
     assert rec["memory"]["argument_bytes"] == want
     assert rec["meta"]["model_flops"] == 256 * 64 * 256 * 1 * 32
     assert "counted_flops=None (the serving step reads" in dryrun.result_line(rec)
-    rec = dryrun.run_cell("pna", "ogb_products", "single", None)
-    assert rec["status"] == "state_only" and rec["reason"] == base.FOUR_CARD_ITEM
+    # ogb_products' sharded step runs over a process group: on a mesh that is
+    # only a shape it is planned, not counted (the dry run counts it as rank 0
+    # of a fake process group: tests/test_torch_dryrun_sharded.py)
+    spec = get_arch("pna").build_dryrun("ogb_products", make_production_mesh())
+    assert spec.fn is None and spec.meta["not_counted"] == base.NEEDS_PROCESS_MESH
     assert dryrun.run_cell("qwen3-4b", "long_500k", "single", None)["status"] == "skip"
 
 
