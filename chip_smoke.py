@@ -128,7 +128,15 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      and the prefill's logits against the world of one's, a TF32 control
      above the tolerance, the flash forward and backward on each route
      (wrapper counts and profiles); in bf16 a timed step, its peak memory
-     beside the dry run's reckoning of the same local step; the expert-parallel MoE layer at
+     beside the dry run's reckoning of the same local step; the decode
+     step on the same mesh under LM_DECODE_RULES (the cache's 32,768
+     positions over "model", kv heads whole; batch 4): the world of one's
+     float32 prefill of 16,382 tokens fills the cache (its flash launches
+     counted), each rank takes its block, and 4 steps, which model ranks
+     0 and 1 write two each, hold each rank's logits and cache block
+     against the world of one's `serve_step`, a TF32 control above the
+     tolerance; then 4 timed bf16 steps, their peak memory beside the dry
+     run's reckoning of the same local step; the expert-parallel MoE layer at
      qwen2-moe-a2.7b's full width at meshes (1, 4) and (2, 2), 4,096 and 16
      tokens a data shard (the FSDP and weight-stationary regimes),
      drop-free and at factor 1.25, output and every gradient against the
@@ -4614,6 +4622,24 @@ MESH_LM_TOL = 1e-4
 MESH_LM_LOGIT_TOL = 5e-5
 MESH_LM_PEAK_TOL = 0.25  # the dry run's reckoned peak against max_memory_allocated
 
+# The decode step on a mesh: the same model on (2, 2) under LM_DECODE_RULES
+# (the cache's positions over "model", its kv heads whole), the cache of
+# decode_32k's length filled by the world of one's float32 prefill
+# (`mesh_decode_ref`), MESH_DECODE_STEPS steps a rank (`mesh_decode_rank`).
+MESH_DECODE_BATCH = 4  # two rows a data rank
+MESH_DECODE_SMAX = 32768  # decode_32k's length: 16,384 positions a model rank
+MESH_DECODE_PROMPT = 16382  # the steps write 16,382-16,385: model rank 0 two, rank 1 two
+MESH_DECODE_STEPS = 4
+# Each rank's vocab block of the logits, of their max; its written cache
+# slots, of their max: the ranks in float32, TF32 off, against the world of
+# one's `Transformer.serve_step` on the same cache and tokens; the ranks
+# with TF32 matmuls are a control that must land above. Each is the
+# geometric mean of the largest float32 and the smallest control reading
+# of the first card run, rounded down to a 1-2-5 step (PERF.md: 1.16e-6 /
+# 1.12e-3 and 9.45e-7 / 8.51e-4)
+MESH_DECODE_TOL = 2e-5
+MESH_DECODE_SLOT_TOL = 2e-5
+
 
 def spawn_ranks(fn, world: int, args, timeout: float) -> list:
     """fn(rank, world, *args) in `world` spawned processes; their results
@@ -4836,7 +4862,8 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
     """One of the phase's four ranks: gloo on `device_type` ("cuda": every
     rank on cuda:0). In order, every rank alike: the gloo route on the
     device's tensors (float32 and bf16), the LM step on the (2, 2) mesh
-    (`mesh_lm_rank`), the expert-parallel MoE layer cases, the
+    (`mesh_lm_rank`), the decode step on it (`mesh_decode_rank`), the
+    expert-parallel MoE layer cases, the
     expert-parallel prefill, the PNA forward at the cut ogb_products size,
     the four archs' losses and gradients on the cut graph, compressed_psum
     over a "pod" axis. Returns figures only (no tensor crosses back but
@@ -4894,6 +4921,8 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
 
     # the LM step on the mesh, first: it needs the most of the card
     out["lm_mesh"] = mesh_lm_rank(mesh, dev, rank, shard_dir)
+    _empty_cache(dev)
+    out["decode_mesh"] = mesh_decode_rank(mesh, dev, rank, shard_dir)
     _empty_cache(dev)
 
     # expert-parallel MoE layer at qwen2-moe's full width
@@ -5187,6 +5216,230 @@ def mesh_lm_rank(mesh, dev, rank, shard_dir) -> dict:
                 launches=launches, bf16_routes=bf16_routes, step_ms=start.elapsed_time(stop),
                 wall_ms=wall_ms, loss_bf16=loss16, peak_allocated=peak, allocated_before=before,
                 s=time.perf_counter() - t0)
+
+
+def mesh_decode_layout(cfg, mesh):
+    from repro_torch.configs.base import LM_DECODE_RULES, merged_rules
+    from repro_torch.models.transformer import MeshLayout
+
+    return MeshLayout(cfg, mesh, merged_rules(LM_DECODE_RULES))
+
+
+def mesh_decode_inputs(vocab: int):
+    """(the prompt (MESH_DECODE_BATCH, MESH_DECODE_PROMPT), each step's
+    tokens (MESH_DECODE_STEPS, MESH_DECODE_BATCH, 1)), int64 on the CPU."""
+    from repro_torch.data.tokens import token_batch
+
+    prompt = token_batch(0, MESH_DECODE_BATCH, MESH_DECODE_PROMPT, vocab,
+                         seed=MESH_LM_SEED)["tokens"]
+    steps = np.random.default_rng(MESH_LM_SEED).integers(
+        0, vocab, (MESH_DECODE_STEPS, MESH_DECODE_BATCH, 1))
+    return torch.as_tensor(prompt, dtype=torch.int64), torch.as_tensor(steps)
+
+
+def mesh_decode_ref(device, shard_dir) -> dict:
+    """The world of one's side of the decode step on a mesh, in float32:
+    `Transformer.prefill_forward` of the prompt (its flash launches
+    counted: the path's only kernel launches), `cache_from_prefill` into a
+    cache of MESH_DECODE_SMAX positions, each rank's block of it to a file
+    a rank under `shard_dir` (`local_shard` by `kv_cache_pspecs`), then
+    MESH_DECODE_STEPS steps of `Transformer.serve_step`: each rank's block
+    of each step's logits and its rows of each step's written slots go to
+    the same file."""
+    from repro_torch.configs.base import LM_DECODE_RULES, merged_rules
+    from repro_torch.distributed.mesh_utils import LogicalRules, local_shard, resolve_pspec
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as T
+
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    cfg = dataclasses.replace(cfg, remat=False)
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, params=draw_params(cfg, device, depth, seed=MESH_LM_SEED),
+                          device=device)
+    prompt, steps = mesh_decode_inputs(cfg.vocab)
+    _sync(device)
+    LAUNCHES.clear()
+    t = time.perf_counter()
+    with torch.no_grad():
+        _, kvs = model.prefill_forward(prompt.to(device))
+    _sync(device)
+    prefill_s = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    cache = cache_from_prefill(model, kvs, MESH_DECODE_BATCH, MESH_DECODE_SMAX,
+                               MESH_DECODE_PROMPT)
+    del kvs
+    lr = LogicalRules(MeshShape(("data", "model"), MESH_LM_SHAPE),
+                      merged_rules(LM_DECODE_RULES))
+    kv_spec = T.kv_cache_pspecs(cfg, MESH_DECODE_BATCH, MESH_DECODE_SMAX, lr)["layers"][0]["k"]
+    logit_spec = resolve_pspec(("batch", "vocab"), (MESH_DECODE_BATCH, cfg.vocab), lr)
+    slot_spec = (None, kv_spec[0], None, None)  # (layer, B, Hkv, Dh): the rank's rows
+    files = [{n: [local_shard(layer[n], kv_spec, _RankOf(r)).cpu() for layer in cache["layers"]]
+              for n in ("k", "v")} for r in range(SHARD_WORLD)]
+    logits, slots, step_s = [], [], []
+    for i in range(MESH_DECODE_STEPS):
+        t = time.perf_counter()
+        lg, cache = model.serve_step(cache, steps[i].to(device))
+        _sync(device)
+        step_s.append(time.perf_counter() - t)
+        p = MESH_DECODE_PROMPT + i
+        logits.append(lg)
+        slots.append({n: torch.stack([layer[n][:, :, p] for layer in cache["layers"]])
+                      for n in ("k", "v")})
+    for r, f in enumerate(files):
+        at = _RankOf(r)
+        f.update(steps=steps, kv_spec=kv_spec,
+                 logits=[local_shard(lg, logit_spec, at).cpu() for lg in logits],
+                 slots=[{n: local_shard(x[n], slot_spec, at).cpu() for n in x} for x in slots])
+        torch.save(f, os.path.join(shard_dir, f"decode_mesh_{r}.pt"))
+    del model, cache, files
+    _empty_cache(device)
+    return dict(prefill_s=prefill_s, launches=launches, step_s=step_s,
+                s=time.perf_counter() - t0)
+
+
+def mesh_decode_reckoned() -> dict:
+    """The dry run's rule for a rank's bf16 decode step (`count_step` per
+    rank on meta tensors, as rank 0 of a fake world of 4): the rank's state
+    bytes (its shards, its block of the cache, its rows), the temporaries'
+    peak and their sum, its collectives."""
+    from repro_torch.analysis.roofline import count_step
+    from repro_torch.distributed.mesh_utils import local_shard, resolve_pspec
+    from repro_torch.launch.dryrun import fake_process_mesh, tensors
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import abstract_params, local_params
+
+    cfg, _ = mesh_lm_cfg(torch.bfloat16)
+    cfg = dataclasses.replace(cfg, remat=False)
+    t = time.perf_counter()
+    with fake_process_mesh(MeshShape(("data", "model"), MESH_LM_SHAPE)) as mesh:
+        lay = mesh_decode_layout(cfg, mesh)
+        params = local_params(T.unstack_layers(abstract_params(T.lm_param_specs(cfg)), cfg),
+                              lay.specs, mesh)
+        kv = T.local_kv_cache(cfg, MESH_DECODE_BATCH, MESH_DECODE_SMAX, lay, device="meta")
+        for layer in kv["layers"]:
+            layer["pos"] = MESH_DECODE_PROMPT
+        tok = torch.empty((MESH_DECODE_BATCH, 1), dtype=torch.int64, device="meta")
+        tok = local_shard(tok, resolve_pspec(("batch", None), (MESH_DECODE_BATCH, 1), lay.lr),
+                          mesh)
+        _, count = count_step(lambda: T.serve_step(params, kv, tok, cfg, lay), (),
+                              per_rank=True)
+        state_bytes = sum(x.numel() * x.element_size() for x in tensors((params, kv, tok)))
+    return dict(state_bytes=state_bytes, temp_bytes=count.temp_bytes,
+                peak_bytes=state_bytes + count.temp_bytes, collective_bytes=count.collective_bytes,
+                collective_bytes_by_kind=dict(count.collective_bytes_by_kind),
+                collectives=count.collectives, flops=count.flops, s=time.perf_counter() - t)
+
+
+def mesh_decode_rank(mesh, dev, rank, shard_dir) -> dict:
+    """The decode step on the mesh, this rank's part: its shards of the
+    same draw as the world of one's (`local_params` under LM_DECODE_RULES),
+    its block of the prefilled cache and its rows of each step's tokens.
+    In float32, TF32 off, MESH_DECODE_STEPS steps from the prefilled
+    block: each step's logits against the world of one's (their max), its
+    written slots against the world of one's (their max), the rest of its
+    block unchanged; again with TF32 matmuls (the control). Then bf16: a
+    warm step and MESH_DECODE_STEPS timed steps, each step's wall on the
+    host's clock (perf_counter, after a sync) and by CUDA events,
+    max_memory_allocated after the peak stats are reset."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import local_shard, resolve_pspec
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import local_params
+
+    t0 = time.perf_counter()
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    cfg = dataclasses.replace(cfg, remat=False)
+    lay = mesh_decode_layout(cfg, mesh)
+    ref = torch.load(os.path.join(shard_dir, f"decode_mesh_{rank}.pt"), weights_only=False)
+    if tuple(ref["kv_spec"]) != T.kv_cache_pspecs(cfg, MESH_DECODE_BATCH, MESH_DECODE_SMAX,
+                                                  lay.lr)["layers"][0]["k"]:
+        raise AssertionError(f"the world of one cut the cache as {ref['kv_spec']}")
+    p0 = local_params(draw_params(cfg, dev, depth, seed=MESH_LM_SEED), lay.specs, mesh)
+    _empty_cache(dev)
+    tok_spec = resolve_pspec(("batch", None), (MESH_DECODE_BATCH, 1), lay.lr)
+    steps = [local_shard(s, tok_spec, mesh).to(dev) for s in ref["steps"]]
+    init = [{n: ref[n][li].to(dev) for n in ("k", "v")} for li in range(cfg.n_layers)]
+    S_loc = init[0]["k"].shape[2]
+    lo = lay.kv_block * S_loc
+    # this block's written positions, a run [a, b) of local ones
+    mine = [(i, p - lo) for i, p in enumerate(range(MESH_DECODE_PROMPT,
+                                                     MESH_DECODE_PROMPT + MESH_DECODE_STEPS))
+            if lo <= p < lo + S_loc]
+    a, b = (mine[0][1], mine[-1][1] + 1) if mine else (S_loc, S_loc)
+
+    def run(tf32: bool):
+        cache = {"layers": [{"k": x["k"].clone(), "v": x["v"].clone(),
+                             "pos": MESH_DECODE_PROMPT} for x in init]}
+        logits = []
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        LAUNCHES.clear()
+        try:
+            for s in steps:
+                lg, cache = T.serve_step(p0, cache, s, cfg, lay)
+                logits.append(lg)
+            _sync(dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        launched = dict(LAUNCHES)
+        lerr = max(float((lg - want.to(dev)).abs().max() / want.abs().max())
+                   for lg, want in zip(logits, ref["logits"]))
+        serr, unchanged = 0.0, True
+        for li, (layer, x) in enumerate(zip(cache["layers"], init)):
+            for n in ("k", "v"):
+                unchanged &= bool(torch.equal(layer[n][:, :, :a], x[n][:, :, :a]) and
+                                  torch.equal(layer[n][:, :, b:], x[n][:, :, b:]))
+                for i, j in mine:
+                    want = ref["slots"][i][n][li].to(dev)
+                    serr = max(serr, float((layer[n][:, :, j] - want).abs().max() /
+                                           want.abs().max()))
+        del cache
+        return dict(logits=lerr, slots=serr, unchanged=unchanged, launches=launched,
+                    finite=all(bool(torch.isfinite(lg).all()) for lg in logits))
+
+    t = time.perf_counter()
+    f32 = run(False)
+    f32_s = time.perf_counter() - t
+    control = run(True)
+    del p0, init
+    _empty_cache(dev)
+
+    # the timed steps, bf16, from the same cache cast
+    cfg16 = dataclasses.replace(mesh_lm_cfg(torch.bfloat16)[0], remat=False)
+    lay16 = mesh_decode_layout(cfg16, mesh)
+    p16 = local_params(draw_params(cfg16, dev, depth, seed=MESH_LM_SEED), lay16.specs, mesh)
+    cache = {"layers": [{n: ref[n][li].to(dev, torch.bfloat16) for n in ("k", "v")}
+                        for li in range(cfg16.n_layers)]}
+    for layer in cache["layers"]:
+        layer["pos"] = MESH_DECODE_PROMPT
+    del ref
+    _empty_cache(dev)
+    _, cache = T.serve_step(p16, cache, steps[0], cfg16, lay16)  # warm
+    _sync(dev)
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    wall_ms, event_ms, finite = [], [], True
+    for s in steps:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        lg, cache = T.serve_step(p16, cache, s, cfg16, lay16)
+        stop.record()
+        _sync(dev)
+        wall_ms.append((time.perf_counter() - t) * 1e3)
+        event_ms.append(start.elapsed_time(stop))
+        finite &= bool(torch.isfinite(lg).all())
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    del p16, cache, lg
+    _empty_cache(dev)
+    return dict(f32=f32, control=control, f32_s=f32_s, owned=[i for i, _ in mine],
+                kv_block=lay.kv_block, wall_ms=wall_ms, event_ms=event_ms, bf16_finite=finite,
+                peak_allocated=peak, allocated_before=before, s=time.perf_counter() - t0)
 
 
 def _empty_cache(dev):
@@ -5624,6 +5877,73 @@ def check_mesh_lm(ranks, ref, reckoned) -> dict:
                 logit_tol=MESH_LM_LOGIT_TOL, peak_off=off, layers=L, shape=MESH_LM_SHAPE)
 
 
+def check_mesh_decode(ranks, ref, reckoned) -> dict:
+    """Hold and log the decode step on a mesh of every rank: in float32
+    each step's logits within MESH_DECODE_TOL and the written slots within
+    MESH_DECODE_SLOT_TOL, the TF32 control above each, the rest of every
+    block unchanged, each new position written by its owner alone, no
+    hand-written kernel launched; bf16 steps finite; the reckoned peak
+    within MESH_LM_PEAK_TOL of max_memory_allocated."""
+    cfg, depth = mesh_lm_cfg(torch.float32)
+    dec = [r["decode_mesh"] for r in ranks]
+    worst = max(x["f32"]["logits"] for x in dec)
+    control = min(x["control"]["logits"] for x in dec)
+    slots = max(x["f32"]["slots"] for x in dec)
+    slots_control = min(x["control"]["slots"] for x in dec)
+    log(f"[sharded] decode step on a mesh: {cfg.name} at full width cut to {cfg.n_layers} of "
+        f"{depth} layers, mesh (data, model) {MESH_LM_SHAPE}, LM_DECODE_RULES (the cache's "
+        f"{MESH_DECODE_SMAX} positions over \"model\", {MESH_DECODE_SMAX // MESH_LM_SHAPE[1]} a "
+        f"rank, kv heads whole), batch {MESH_DECODE_BATCH} ({MESH_DECODE_BATCH // MESH_LM_SHAPE[0]}"
+        f" rows a data rank), the world of one's float32 prefill of {MESH_DECODE_PROMPT} tokens "
+        f"({ref['prefill_s']:.2f} s, flash launches {ref['launches']}) then {MESH_DECODE_STEPS} "
+        f"steps; float32, TF32 off, against the world of one's serve_step "
+        f"(" + " ".join(f"{v:.3f}" for v in ref["step_s"]) + " s a step): logits of their max "
+        "by rank " + " ".join(f"{x['f32']['logits']:.3g}" for x in dec) +
+        f" (tol {MESH_DECODE_TOL}; the TF32 control {control:.3g} at least); written slots "
+        "by rank " + " ".join(f"{x['f32']['slots']:.3g}" for x in dec) +
+        f" (tol {MESH_DECODE_SLOT_TOL}; control {slots_control:.3g}); steps written by rank "
+        + " ".join(str(x["owned"]) for x in dec) + "; every block unchanged elsewhere "
+        f"{all(x['f32']['unchanged'] and x['control']['unchanged'] for x in dec)}; float32 "
+        "run " + " ".join(f"{x['f32_s']:.1f}" for x in dec) + " s by rank")
+    if not (worst <= MESH_DECODE_TOL < control and slots <= MESH_DECODE_SLOT_TOL < slots_control):
+        raise AssertionError(f"the decode step on a mesh against the world of one: "
+                             f"{[(x['f32'], x['control']) for x in dec]}")
+    for x in dec:
+        if not (x["f32"]["unchanged"] and x["control"]["unchanged"] and x["f32"]["finite"] and
+                x["bf16_finite"]):
+            raise AssertionError(f"the decode step on a mesh: a block changed outside its "
+                                 f"written slots, or a logit not finite: {x}")
+        if x["f32"]["launches"] or x["control"]["launches"]:
+            raise AssertionError(f"the decode step launched {x['f32']['launches']}: its "
+                                 f"attention is the plain einsum and softmax")
+    blocks = MESH_DECODE_SMAX // MESH_LM_SHAPE[1]
+    want_owned = [[i for i in range(MESH_DECODE_STEPS)
+                   if (MESH_DECODE_PROMPT + i) // blocks == x["kv_block"]] for x in dec]
+    if [x["owned"] for x in dec] != want_owned or \
+            sorted({i for x in dec for i in x["owned"]}) != list(range(MESH_DECODE_STEPS)):
+        raise AssertionError(f"the owners of the writes: {[x['owned'] for x in dec]}, expected "
+                             f"{want_owned}")
+    peaks = [x["peak_allocated"] for x in dec]
+    off = [abs(reckoned["peak_bytes"] - p) / p for p in peaks]
+    log(f"[sharded] decode step on a mesh, bf16 ({MESH_DECODE_STEPS} steps after a warm one, "
+        f"every rank at once on the one card): the wall a step by rank (host perf_counter "
+        f"after a sync) " + "; ".join(" ".join(f"{w:.1f}" for w in x["wall_ms"]) for x in dec) +
+        " ms (CUDA events " + "; ".join(" ".join(f"{w:.1f}" for w in x["event_ms"])
+                                       for x in dec) +
+        " ms); peak allocated by rank " + " ".join(f"{p / 1e9:.3f}" for p in peaks) +
+        f" GB against the dry run's reckoning {reckoned['peak_bytes'] / 1e9:.3f} GB (state "
+        f"{reckoned['state_bytes'] / 1e9:.3f} + temporaries {reckoned['temp_bytes'] / 1e9:.3f}; "
+        f"{reckoned['collective_bytes'] / 1e9:.3f} GB of collectives a step "
+        f"{reckoned['collective_bytes_by_kind']}), off by " + " ".join(f"{o:.3f}" for o in off) +
+        f" (tol {MESH_LM_PEAK_TOL}); rank path " + " ".join(f"{x['s']:.1f}" for x in dec) + " s")
+    if max(off) > MESH_LM_PEAK_TOL:
+        raise AssertionError(f"the reckoned decode peak {reckoned} against {peaks}")
+    return dict(ranks=dec, ref=ref, reckoned=reckoned, tol=MESH_DECODE_TOL,
+                slot_tol=MESH_DECODE_SLOT_TOL, peak_off=off, layers=cfg.n_layers,
+                shape=MESH_LM_SHAPE, batch=MESH_DECODE_BATCH, max_seq=MESH_DECODE_SMAX,
+                prompt=MESH_DECODE_PROMPT, steps=MESH_DECODE_STEPS)
+
+
 def sharded_paths(device):
     """Phase 13: the sharded paths, as four gloo ranks on the one card.
 
@@ -5645,10 +5965,13 @@ def sharded_paths(device):
     the CPU's and its mean within one quantisation step of the plain mean.
     A rank that fails or hangs fails the phase. Before the ranks, this
     process also runs the mesh LM's world of one (`mesh_lm_ref`) and the
-    dry run's reckoning of its timed step (`mesh_lm_reckoned`); the ranks'
-    readings are held by `check_mesh_lm`. Returns (figures, the ranks'
-    flash launches summed: the expert-parallel prefill's and the mesh
-    LM's timed step's, by wrapper)."""
+    dry run's reckoning of its timed step (`mesh_lm_reckoned`), and the
+    decode step's world of one (`mesh_decode_ref`: the prefill that fills
+    the cache, the steps) and its reckoning (`mesh_decode_reckoned`); the
+    ranks' readings are held by `check_mesh_lm` and `check_mesh_decode`.
+    Returns (figures, the flash launches summed: the ranks' expert-parallel
+    prefill's and the mesh LM's timed step's, and the decode's prefill in
+    this process, by wrapper)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -5665,7 +5988,10 @@ def sharded_paths(device):
         one = world_of_one(device, shard_dir, products)
         _empty_cache(device)
         lm_ref = mesh_lm_ref(device, shard_dir)
+        _empty_cache(device)
+        decode_ref = mesh_decode_ref(device, shard_dir)
     lm_reckoned = mesh_lm_reckoned()
+    decode_reckoned = mesh_decode_reckoned()
     _empty_cache(device)
     parent_gb = torch.cuda.memory_reserved(device) / 1e9 if device.type == "cuda" else 0.0
     setup_s = time.perf_counter() - t0
@@ -5680,6 +6006,7 @@ def sharded_paths(device):
         f"bf16 (sum and max), checked on every rank; the port stages nothing through host "
         f"memory; ranks up in {max(r['start_s'] for r in ranks):.1f} s")
     lm_mesh = check_mesh_lm(ranks, lm_ref, lm_reckoned)
+    decode_mesh = check_mesh_decode(ranks, decode_ref, decode_reckoned)
     log(f"[sharded] world of one over {one['backend']}: expert-parallel layer " +
         "; ".join(f"{c['tokens_a_shard']} tokens ({c['regime']}, capacity {c['capacity']}) worst "
                   f"{c['worst']:.3g} ({c['worst_leaf']})" for c in one["moe_layer"]) +
@@ -5777,7 +6104,7 @@ def sharded_paths(device):
         "besides (not counted by torch)")
     n_flash = sum(p["flash_launches"] for p in pf)
     figures = dict(
-        route=r0["route"], world_of_one=one, lm_mesh=lm_mesh,
+        route=r0["route"], world_of_one=one, lm_mesh=lm_mesh, decode_mesh=decode_mesh,
         moe_layer=[r["moe_layer"] for r in ranks],
         prefill=dict(rel_l2=errs, tol=EP_PREFILL_TOL, input_moved=moved,
                      flash_launches=[p["flash_launches"] for p in pf],
@@ -5791,10 +6118,11 @@ def sharded_paths(device):
         peak_reserved_gb=[r.get("peak_reserved_gb") for r in ranks],
         peak_allocated_gb=[r.get("peak_allocated_gb") for r in ranks],
         parent_reserved_gb=parent_gb)
-    # the flash launches of the phase's paths: the expert-parallel prefill's
-    # and the mesh LM's timed step, summed over the ranks
+    # the flash launches of the phase's paths: the expert-parallel prefill's,
+    # the mesh LM's timed step, summed over the ranks, and the prefill that
+    # fills the cache the decode step on a mesh reads
     launches = {"flash_attention": n_flash + sum(r["lm_mesh"]["launches"].get(
-        "flash_attention", 0) for r in ranks),
+        "flash_attention", 0) for r in ranks) + decode_ref["launches"].get("flash_attention", 0),
         "flash_attention_bwd": sum(r["lm_mesh"]["launches"].get("flash_attention_bwd", 0)
                                    for r in ranks)}
     return figures, launches

@@ -12,11 +12,11 @@ eagerly on the meta tensors at full depth (`analysis/roofline.py`).
 
 Given a `ProcessMesh` (the dry run builds one over a `fake` process group
 of the mesh's size), the sharded cells' steps run per rank, with rank 0's
-own arguments: the LM's training step and prefill on the mesh
+own arguments: the LM's training step, prefill and decode step on the mesh
 (`models/transformer.py` `MeshLayout`), and ogb_products' full-graph step
 (`models/gnn/distributed.py`); `meta["per_rank"]` says so. Given a mesh
 that is only a shape (`launch.mesh.MeshShape`), every step runs as on one
-device, as do the LM's decode cells on any mesh (`SINGLE_DEVICE_DECODE`).
+device.
 
 The graph shapes (`GNN_SHAPES`) are all synthetic (`graph/generators.py`,
 `data/graphs.py`): full_graph_sm has Cora's shape, minibatch_lg Reddit's
@@ -33,12 +33,6 @@ import torch
 
 from repro_torch.distributed.mesh_utils import DEFAULT_RULES, resolve_pspec, set_mesh_rules
 from repro_torch.models.param import abstract_params, param_count, param_pspecs
-
-# why a cell is counted as one device's step, split evenly over the mesh
-SINGLE_DEVICE_DECODE = ("the decode step runs on one device and its counts are split evenly "
-                        "over the mesh: the decode step on a mesh, with its sequence-parallel "
-                        "KV cache (LM_DECODE_RULES), is the next slice (ROADMAP Queue 1)")
-
 
 def per_rank_mesh(mesh) -> bool:
     """Whether `mesh` is a `ProcessMesh` (axis groups to run a rank's step
@@ -209,10 +203,15 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
     and attention its q chunks above 2048 x 2048 (`kernels.ops.attention`),
     as the step runs them.
 
-    On a `ProcessMesh` the training step and prefill are rank 0's own
-    (`models/transformer.py` on a `MeshLayout` under the cell's rules): its
-    shards of the state (`models.param.local_params`) and its rows of the
-    batch. The decode cells run as on one device (`SINGLE_DEVICE_DECODE`)."""
+    On a `ProcessMesh` every step is rank 0's own (`models/transformer.py`
+    on a `MeshLayout` under the cell's rules): its shards of the state
+    (`models.param.local_params`) and its rows of the batch; a decode cell's
+    cache is rank 0's block (`local_kv_cache`) at pos = seq - 1, the last
+    position. The flops do not depend on pos: the step attends over every
+    position of its block, masked or not, as the reference attends over
+    all of Smax. That position is owned by the last block along `kv_seq`
+    (model rank 15 of data rank 0 under LM_DECODE_RULES, rank 255 under
+    LM_LONG_DECODE_RULES on 16 x 16), so rank 0 writes no key or value."""
     from repro_torch.distributed.mesh_utils import local_shard
     from repro_torch.models import transformer as T
     from repro_torch.models.param import local_params
@@ -222,7 +221,7 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
     d = LM_SHAPES[shape]
     rules = merged_rules(cell.rules)
     seq, batch = d["seq"], d["batch"]
-    sharded = per_rank_mesh(mesh) and cell.kind in ("train", "prefill")
+    sharded = per_rank_mesh(mesh)
     with set_mesh_rules(mesh, rules) as lr:
         specs = T.lm_param_specs(cfg)
         ap = abstract_params(specs)
@@ -234,7 +233,7 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
                 "n_groups": n_groups_full, "kind": cell.kind, "per_rank": sharded}
         lay = T.MeshLayout(cfg, mesh, rules) if sharded else None
         on_rank = (lambda tree: local_params(tree, lay.specs, mesh)) if sharded else None
-        rows = (lambda t: local_shard(t, tok_sh(seq), mesh)) if sharded else (lambda t: t)
+        rows = (lambda t: local_shard(t, tok_sh(t.shape[1]), mesh)) if sharded else (lambda t: t)
 
         if cell.kind == "train":
             from repro_torch.optim.adamw import AdamWConfig
@@ -272,17 +271,26 @@ def build_lm_dryrun(cfg, shape: str, mesh, cell: Cell) -> DryRunSpec:
         kv_abs = T.abstract_kv_cache(icfg, batch, seq)
         kv_sh = T.kv_cache_pspecs(icfg, batch, seq, lr)
         tok = meta_tensor((batch, 1))
+        kv = kv_abs
+        if sharded:
+            ilay = T.MeshLayout(icfg, mesh, rules)
+            kv = T.local_kv_cache(icfg, batch, seq, ilay, device="meta")
+            for layer in kv["layers"]:
+                layer["pos"] = seq - 1
 
         def decode(params, kv, tokens):
+            if sharded:
+                return T.serve_step(params, kv, tokens, icfg, ilay)
             return T.Transformer(icfg, params, device="meta").serve_step(kv, tokens)
 
+        params = per_layer(ap)
         return DryRunSpec(
-            fn=decode, args=(per_layer(ap), kv_abs, tok),
+            fn=decode, args=(on_rank(params) if sharded else params, kv, rows(tok)),
             in_specs=(pspecs, kv_sh, tok_sh(1)), state=(ap, kv_abs, tok), donate=(1,),
             rules=rules,
             meta={"params": n_params, "tokens": batch,
                   "model_flops": lm_model_flops(cfg, batch, "decode"), "kind": "decode",
-                  "per_rank": False, "counted_as": SINGLE_DEVICE_DECODE})
+                  "per_rank": sharded})
 
 
 # ---------------------------------------------------------------------------

@@ -13,19 +13,19 @@ built on every rank, as `ProcessMesh` builds them, for 0.01 s at 512.
 
   - Per-device state bytes (parameters, optimizer state, KV cache, batch)
     are exact, from the sharding specs (`distributed/mesh_utils.py`).
-  - The sharded steps (an LM's training step and prefill, ogb_products'
-    full-graph step; `meta["per_rank"]`) run as rank 0 runs them, on its
-    shards and over its groups: their flops and bytes are rank 0's own,
+  - The sharded steps (an LM's training step, prefill and decode step,
+    ogb_products' full-graph step; `meta["per_rank"]`) run as rank 0 runs
+    them, on its shards and over its groups: their flops and bytes are rank 0's own,
     with its collectives' bytes by kind, split within and between nodes,
     and its temporaries. `temp_bytes` is the peak of the live storage the
     step allocates: each output's storage is added when it appears and
     taken away when it is freed, the attention scores left out (the flash
     kernels keep them on chip); the peak per device is that plus the
     arguments' bytes, and the fit (`fits_80gb`) is stated for it.
-  - Every other step (the decode cells, the zoo's one-device cells) runs
-    as on one device: its flops and bytes are split evenly over the mesh,
-    it has no collectives, its temporaries are None and its fit is stated
-    for the state alone (`state_fits_80gb`).
+  - Every other step (the zoo's one-device cells) runs as on one device:
+    its flops and bytes are split evenly over the mesh, it has no
+    collectives, its temporaries are None and its fit is stated for the
+    state alone (`state_fits_80gb`).
   - A cell whose step cannot run on meta tensors (grouting's serving step
     reads the device) gives its state bytes, the reference's model flops
     and the reason; its counted flops are None.

@@ -55,6 +55,21 @@ per rank, on this rank's shards of the port's tree (`lm_local_pspecs`,
   - the MoE FFN is `moe_ffn_expert_parallel`, whose in_specs the leaves'
     resolved specs must equal.
 
+`serve_step` given a layout is the reference's decode step bound to a mesh
+under `LM_DECODE_RULES` (the cache's `kv_seq` over "model") or
+`LM_LONG_DECODE_RULES` (the batch whole, `kv_seq` over ("data", "model")),
+`kv_heads` whole under both: a rank holds one block of the positions of
+every kv head of its rows (`local_kv_cache`). Its attention
+(`_mesh_decode_attention`) needs every q head: it computes the q columns
+of its shard of wq and all-gathers the activation over "model". Only the
+rank whose block holds `pos` writes the new keys and values; the masks are
+in global positions, so a block that is wholly masked joins every
+collective with the finite MASK_VALUE. The softmax runs over the sharded
+keys as the reference's does (the row max over the `kv_seq` group, the
+local sums of exp, their psum, probabilities cast to the model's dtype
+before the product with the rank's v block), and the partial outputs are
+summed over the group in float32, then cast once.
+
 A block whose inner dim the specs leave whole along "model" (e.g. a d_ff
 that does not split) runs alike on every model rank, with no enter and no
 psum.
@@ -63,6 +78,7 @@ psum.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -432,6 +448,30 @@ def kv_cache_pspecs(cfg: LMConfig, batch: int, max_seq: int, lr=None) -> dict:
     return {"layers": [{"k": kv, "v": kv, "pos": ()} for _ in range(cfg.n_layers)]}
 
 
+def local_kv_cache(cfg: LMConfig, batch: int, max_seq: int, layout: "MeshLayout",
+                   dtype: Optional[torch.dtype] = None, device: DeviceLike = None) -> dict:
+    """This rank's zeroed block of `Transformer.init_kv_cache`'s cache on a
+    mesh, pos 0: (B_loc, Hkv, Smax / n_seq, Dh) a layer, as
+    `kv_cache_pspecs` resolves under the layout's rules, on `device` (CUDA
+    unless the caller names another). Every rank builds it alike. Raises
+    where the batch or the length does not split over the axes the rules
+    give them, or the rules split the kv heads: the decode step on a mesh
+    reads every kv head of its block of positions."""
+    spec = kv_cache_pspecs(cfg, batch, max_seq, layout.lr)["layers"][0]["k"]
+    if tuple(spec[:3]) != (layout.kv_spec[0], None, layout.kv_spec[2]):
+        raise ValueError(f"a cache of batch {batch}, {cfg.n_kv_heads} kv heads and length "
+                         f"{max_seq} resolves to {spec}; the decode step on a mesh takes "
+                         f"{layout.kv_spec[0]} on the batch, the kv heads whole and "
+                         f"{layout.kv_spec[2]} on the positions")
+    shape = [batch, cfg.n_kv_heads, max_seq, cfg.head_dim]
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            shape[dim] //= layout.mesh.axis_size(entry)
+    dev = resolve_device(device)
+    kv = lambda: torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev)
+    return {"layers": [{"k": kv(), "v": kv(), "pos": 0} for _ in range(cfg.n_layers)]}
+
+
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
             layout: Optional["MeshLayout"] = None) -> Tuple[torch.Tensor, dict]:
     """The reference's `loss_fn(params, batch, cfg)` over the port's tree:
@@ -467,9 +507,13 @@ def lm_local_pspecs(cfg: LMConfig, lr: Optional[LogicalRules]) -> dict:
 class MeshLayout:
     """Where the LM's leaves and activations lie on a `ProcessMesh` under
     `rules` (default: `mesh_utils.DEFAULT_RULES`; the reference's training
-    step takes `configs.base.LM_TRAIN_RULES`): the resolved spec of every
-    leaf of the port's tree (`specs`), the batch axes, and this rank's
-    place on "model". Every rank builds it alike."""
+    step takes `configs.base.LM_TRAIN_RULES`, its decode steps
+    `LM_DECODE_RULES` and `LM_LONG_DECODE_RULES`): the resolved spec of
+    every leaf of the port's tree (`specs`), the batch axes, this rank's
+    place on "model", and the decode cache's `kv_seq` axes with this
+    rank's block index along them (row-major over a tuple, as
+    `mesh_utils.local_shard` takes it) and their group. Every rank builds
+    it alike."""
 
     def __init__(self, cfg: LMConfig, mesh, rules: Optional[dict] = None):
         self.cfg, self.mesh = cfg, mesh
@@ -479,9 +523,21 @@ class MeshLayout:
         batch = self.lr._exists(self.lr.rules.get("batch"))
         batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
         self.batch_axes = tuple(a for a in batch if axes[a] > 1)
+        # FSDP: a leaf is whole along every axis but "model" where it is used
+        # (under LM_LONG_DECODE_RULES the batch is whole, the leaves still
+        # split over "data")
+        self.gather_axes = tuple(a for a in axes if a != "model" and axes[a] > 1)
         self.n_model = axes.get("model", 1)
         self.m = mesh.axis_index("model") if self.n_model > 1 else 0
         self.g_model = mesh.group("model") if self.n_model > 1 else None
+        # the cache's axes as the rules give them (a length every axis divides)
+        self.kv_spec = resolve_pspec(("batch", "kv_heads", "kv_seq"),
+                                     (math.prod(axes.values()),) * 3, self.lr)
+        seq = self.kv_spec[2]
+        self.kv_seq_axes = () if seq is None else (seq,) if isinstance(seq, str) else tuple(seq)
+        self.n_seq = mesh.axis_size(self.kv_seq_axes) if self.kv_seq_axes else 1
+        self.kv_block = mesh.axis_index(self.kv_seq_axes) if self.n_seq > 1 else 0
+        self.g_seq = mesh.group(self.kv_seq_axes) if self.n_seq > 1 else None
 
     def enter_batch(self, w: torch.Tensor, spec) -> torch.Tensor:
         """A leaf entering the batch axes it is not split on (its use
@@ -490,10 +546,10 @@ class MeshLayout:
         return C.enter(w, self.mesh.group(cross)) if cross else w
 
     def use(self, w: torch.Tensor, spec) -> torch.Tensor:
-        """A leaf as this rank uses it, whole along the batch axes: it
-        enters the batch axes it is not split on, and is gathered over
+        """A leaf as this rank uses it, whole along every axis but "model":
+        it enters the batch axes it is not split on, and is gathered over
         those it is (FSDP)."""
-        return gather(self.enter_batch(w, spec), spec, self.mesh, self.batch_axes)
+        return gather(self.enter_batch(w, spec), spec, self.mesh, self.gather_axes)
 
     def split_on_model(self, spec, dim: int) -> bool:
         return self.n_model > 1 and "model" in spec_layout(spec).get(dim, ())
@@ -611,12 +667,84 @@ def _mesh_ffn(p: dict, sp: dict, h: torch.Tensor, cfg: LMConfig,
     return (C.psum(y, lay.g_model) if parallel else y), None
 
 
+def _mesh_decode_attention(p: dict, sp: dict, x: torch.Tensor, cfg: LMConfig, kind: str,
+                           cache: dict, lay: MeshLayout) -> Tuple[torch.Tensor, dict]:
+    """The decode step's attention on a mesh, against this rank's block of
+    the cache ({"k", "v": (B_loc, Hkv, S_loc, Dh), "pos"}), which it
+    updates in place: (the attention's output, the cache with pos
+    advanced)."""
+    B, S, _ = x.shape
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if lay.split_on_model(sp["wk"], 1) or lay.split_on_model(sp["wv"], 1):
+        raise NotImplementedError(f"the decode step on a mesh reads every kv head of its "
+                                  f"block of positions; the rules split them: {sp['wk']}")
+    w = {k: lay.use(v, sp[k]) for k, v in p.items()}
+    q, k, v = x @ w["wq"], x @ w["wk"], x @ w["wv"]
+    if cfg.qkv_bias:  # bq splits as wq's columns do (both "heads")
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    if lay.split_on_model(sp["wq"], 1):  # every q head: this rank's columns gathered
+        q = C.all_gather(q, lay.g_model, 2)
+    q, k, v = q.view(B, S, H, Dh), k.view(B, S, Hk, Dh), v.view(B, S, Hk, Dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, w["k_norm"], cfg.norm_eps)
+    pos = cache["pos"]
+    positions = (pos + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    q = L.rope(q.transpose(1, 2), positions[:, None, :], cfg.rope_theta)  # (B, H, S, Dh)
+    k = L.rope(k.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
+    v = v.transpose(1, 2)
+
+    ck, cv = cache["k"], cache["v"]
+    S_loc = ck.shape[2]
+    lo = lay.kv_block * S_loc  # this block's first position
+    a, b = max(pos, lo), min(pos + S, lo + S_loc)
+    if a < b:  # the owner of the new positions writes them (pos is a host int)
+        ck[:, :, a - lo:b - lo] = k[:, :, a - pos:b - pos].to(ck.dtype)
+        cv[:, :, a - lo:b - lo] = v[:, :, a - pos:b - pos].to(cv.dtype)
+    kpos = lo + torch.arange(S_loc, device=x.device)[None, :]
+    qpos = pos + torch.arange(S, device=x.device)[:, None]
+    mask = kpos <= qpos
+    window = cfg.window if kind == "local" else None
+    if window is not None:
+        mask &= kpos > qpos - window
+    qg = q.reshape(B, Hk, H // Hk, S, Dh)
+    logits = L.div(torch.einsum("bhgqd,bhkd->bhgqk", qg, ck).float(), float(np.sqrt(Dh)))
+    logits = L.softcap(logits, cfg.attn_softcap)
+    logits = torch.where(mask, logits, torch.full((), MASK_VALUE, device=x.device))
+    # the softmax over the keys of every block: a wholly masked block's exps are 0
+    mx = logits.amax(-1, keepdim=True)
+    if lay.g_seq is not None:
+        mx = C.pmax(mx, lay.g_seq)
+    e = torch.exp(logits - mx)
+    total = e.sum(-1, keepdim=True)
+    if lay.g_seq is not None:
+        total = C.psum(total, lay.g_seq)
+    probs = (e / total).to(q.dtype)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, cv)
+    if lay.g_seq is not None:  # the partial outputs, summed in float32
+        out = C.psum(out.float(), lay.g_seq).to(q.dtype)
+    out = out.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
+    new_cache = {"k": ck, "v": cv, "pos": pos + S}
+    if not lay.split_on_model(sp["wo"], 0):
+        return out @ w["wo"], new_cache
+    per = H * Dh // lay.n_model  # this rank's rows of wo read their columns
+    y = out[..., lay.m * per:(lay.m + 1) * per] @ w["wo"]
+    return C.psum(y, lay.g_model), new_cache
+
+
 def _mesh_layer(p: dict, sp: dict, x: torch.Tensor, cfg: LMConfig, kind: str,
-                positions: torch.Tensor, lay: MeshLayout):
-    """`_layer` on a mesh: (x, the MoE `Routing` or None, this rank's KV)."""
+                positions: Optional[torch.Tensor], lay: MeshLayout,
+                kv_cache: Optional[dict] = None):
+    """`_layer` on a mesh: (x, the MoE `Routing` or None, this rank's KV);
+    given this rank's block of a layer's cache, the decode step's layer
+    (its positions follow the cache's pos)."""
     n = {k: lay.use(v, sp[k]) for k, v in p.items() if k not in ("attn", "ffn")}
     h = L.rms_norm(x, n["input_norm"], cfg.norm_eps)
-    attn_out, kv = _mesh_attention(p["attn"], sp["attn"], h, cfg, kind, positions, lay)
+    if kv_cache is None:
+        attn_out, kv = _mesh_attention(p["attn"], sp["attn"], h, cfg, kind, positions, lay)
+    else:
+        attn_out, kv = _mesh_decode_attention(p["attn"], sp["attn"], h, cfg, kind, kv_cache,
+                                              lay)
     if cfg.post_norms:
         attn_out = L.rms_norm(attn_out, n["post_attn_out_norm"], cfg.norm_eps)
     x = x + attn_out
@@ -732,6 +860,29 @@ def prefill_forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     stack = {str(i): {n: torch.stack([kv[n] for kv in kvs[i::G]]) for n in ("k", "v")}
              for i in range(G)}
     return logits, stack
+
+
+@torch.no_grad()
+def serve_step(params: dict, kv_cache: dict, tokens: torch.Tensor, cfg: LMConfig,
+               layout: MeshLayout) -> Tuple[torch.Tensor, dict]:
+    """The reference's `serve_step` on a mesh (`layout`, under
+    `LM_DECODE_RULES` or `LM_LONG_DECODE_RULES`), one decode step: this
+    rank's shards of the parameters (`models.param.local_params`), its
+    block of the cache (`local_kv_cache`) and its rows tokens (B_loc, S) new
+    ids -> (its block of the last position's float32 logits, (B_loc, V_loc)
+    where the vocab splits over "model"; its block of the cache updated in
+    place, pos advanced by S)."""
+    lay = layout
+    x = _mesh_embed(params, tokens, cfg, lay)
+    new_layers = []
+    for li, (p, sp, cache) in enumerate(zip(params["layers"], lay.specs["layers"],
+                                            kv_cache["layers"])):
+        x, _, new_cache = _mesh_layer(p, sp, x, cfg, cfg.pattern[li % cfg.group_size], None,
+                                      lay, kv_cache=cache)
+        new_layers.append(new_cache)
+    x = L.rms_norm(x, lay.use(params["final_norm"], lay.specs["final_norm"]), cfg.norm_eps)
+    u, _, _ = _unembed(params, lay)
+    return L.softcap((x[:, -1:, :] @ u).float(), cfg.final_softcap)[:, 0], {"layers": new_layers}
 
 
 # ---------------------------------------------------------------------------

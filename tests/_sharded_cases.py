@@ -1,6 +1,7 @@
 """The cases of the port's sharded-path tests (`test_torch_moe_distributed.py`,
 `test_torch_dist_gnn.py`, `test_torch_grad_compression.py`,
-`test_torch_lm_mesh.py`, `test_torch_checkpoint_mesh.py`), shared by the
+`test_torch_lm_mesh.py`, `test_torch_checkpoint_mesh.py`,
+`test_torch_lm_decode_mesh.py`), shared by the
 reference runner (`_sharded_ref.py`, JAX on 4 host devices) and the port's
 workers (`_torch_sharded.py`, 4 gloo ranks): numpy and plain values only.
 
@@ -95,6 +96,48 @@ LM_REF_SHARDED_CASE = "qwen3-4b/2x2"  # against the reference's own sharded step
 
 
 LM_REF_PROCS = 2  # the reference's unsharded steps, in this many processes
+
+
+# --- the decode step on a mesh: the smoke configs under the decode rules --
+# name -> (arch, mesh shape, mesh axes, rules: "decode" for LM_DECODE_RULES,
+# "long" for LM_LONG_DECODE_RULES). A cache of DECODE_SMAX positions drawn
+# at pos DECODE_POS, then DECODE_STEPS steps: the write crosses the block
+# boundary at 24 (DECODE_SMAX / 2) and, at (1, 4), the one at 24 of blocks of
+# 12. gemma2's window of 16 spans blocks, and its local layers mask every
+# position of some.
+DECODE_SMAX, DECODE_POS, DECODE_STEPS = 48, 22, 4
+DECODE_BATCH = {"decode": 4, "long": 1}  # long_500k's batch is 1, whole on every rank
+DECODE_CASES = {
+    "qwen3-4b/2x2": ("qwen3-4b", (2, 2), AXES, "decode"),
+    "qwen3-4b/1x4": ("qwen3-4b", (1, 4), AXES, "decode"),
+    "qwen3-4b/pod2x1x2": ("qwen3-4b", (2, 1, 2), POD, "decode"),
+    "gemma2-27b/1x4": ("gemma2-27b", (1, 4), AXES, "decode"),
+    "qwen2.5-14b/2x2": ("qwen2.5-14b", (2, 2), AXES, "decode"),
+    "qwen2-moe-a2.7b/2x2": ("qwen2-moe-a2.7b", (2, 2), AXES, "decode"),
+    "gemma2-27b/long-2x2": ("gemma2-27b", (2, 2), AXES, "long"),
+}
+# against the reference's own sharded decode, jitted on (2, 2)
+DECODE_REF_SHARDED = ("qwen3-4b/2x2", "gemma2-27b/long-2x2")
+
+
+def decode_variant(name: str) -> str:
+    """The unsharded decode a case is held to: its arch and batch."""
+    arch, _, _, rules = DECODE_CASES[name]
+    return f"{arch},b{DECODE_BATCH[rules]}"
+
+
+def decode_inputs(arch_cfg, rules: str):
+    """(the cache's {"layers/L/k" | "layers/L/v": (B, Hkv, DECODE_SMAX, Dh)}
+    float32, drawn at every position (those from DECODE_POS on are masked
+    until a step writes them), the tokens of each step (DECODE_STEPS, B, 1)
+    int32) of a config with fields n_layers, n_kv_heads, head_dim, vocab."""
+    B = DECODE_BATCH[rules]
+    rng = np.random.default_rng([13, B])
+    shape = (B, arch_cfg.n_kv_heads, DECODE_SMAX, arch_cfg.head_dim)
+    cache = {f"layers/{li}/{n}": rng.standard_normal(shape).astype(np.float32)
+             for li in range(arch_cfg.n_layers) for n in ("k", "v")}
+    tokens = rng.integers(0, arch_cfg.vocab, (DECODE_STEPS, B, 1)).astype(np.int32)
+    return cache, tokens
 
 
 def lm_variant(name: str) -> str:

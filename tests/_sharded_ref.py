@@ -15,7 +15,11 @@ from the logical specs; each device's shards after `C.LM_STEPS` steps),
 `parse_collectives` of its HLO, count and bytes by kind), "lm-unsharded:I"
 (the unsharded steps of every I-th of `C.lm_variants()`:
 the loss and gradients, `C.LM_STEPS` steps of `make_train_step`, then the
-prefill's last logits).
+prefill's last logits), "decode" (`serve_step` jitted on a (2, 2) mesh
+under `LM_DECODE_RULES` or `LM_LONG_DECODE_RULES`, bound as its dry run
+binds it, for each case of `C.DECODE_REF_SHARDED`: each device's shards of
+the logits and the cache at each step), "decode-unsharded" (the unsharded
+`serve_step` of every `C.decode_variant`).
 """
 
 from __future__ import annotations
@@ -245,6 +249,88 @@ def lm_unsharded(out: dict, part: int) -> None:
         out[f"{variant}/last"] = np.asarray(last)
 
 
+def _decode_inputs(name: str):
+    """(the reference's config, its stacked parameters, its cache at
+    `C.DECODE_POS`, the tokens of each step) of decode case `name`."""
+    from repro.configs import get_arch
+    from repro.models import transformer as T
+
+    arch, _, _, rules = C.DECODE_CASES[name]
+    cfg = get_arch(arch).smoke_cfg()
+    specs = T.lm_param_specs(cfg)
+    flat = C.lm_params({k: s.shape for k, s in C.flatten(specs).items()})
+    params = C.unflatten({k: jnp.asarray(v) for k, v in flat.items()}, specs)
+    drawn, tokens = C.decode_inputs(cfg, rules)
+    cache = {"layers": [{"k": jnp.asarray(drawn[f"layers/{li}/k"]),
+                         "v": jnp.asarray(drawn[f"layers/{li}/v"]),
+                         "pos": jnp.asarray(C.DECODE_POS, jnp.int32)}
+                        for li in range(cfg.n_layers)]}
+    return cfg, params, cache, tokens
+
+
+def _decode_steps(out: dict, prefix: str, step, params, cache, tokens, n_layers: int,
+                  shards=None) -> None:
+    """`C.DECODE_STEPS` steps: each step's logits and cache under `prefix`,
+    whole, or with `shards` (a device list) each device's shard."""
+    for i in range(C.DECODE_STEPS):
+        logits, cache = step(params, cache, tokens[i])
+        leaves = {"logits": logits}
+        leaves.update({f"layers/{li}/{n}": cache["layers"][li][n]
+                       for li in range(n_layers) for n in ("k", "v")})
+        out[f"{prefix}step{i}/pos"] = np.asarray(cache["layers"][0]["pos"])
+        for k, a in leaves.items():
+            if shards is None:
+                out[f"{prefix}step{i}/{k}"] = np.asarray(a)
+                continue
+            for sh in a.addressable_shards:
+                out[f"{prefix}step{i}/{k}/{shards.index(sh.device)}"] = np.asarray(sh.data)
+
+
+def decode_unsharded(out: dict) -> None:
+    """The unsharded `serve_step` of every `C.decode_variant`."""
+    from repro.models import transformer as T
+
+    for variant in sorted({C.decode_variant(n) for n in C.DECODE_CASES}):
+        name = next(n for n in C.DECODE_CASES if C.decode_variant(n) == variant)
+        cfg, params, cache, tokens = _decode_inputs(name)
+        step = jax.jit(lambda p, c, t: T.serve_step(p, c, t, cfg))
+        _decode_steps(out, f"{variant}/", step, params, cache, jnp.asarray(tokens), cfg.n_layers)
+
+
+def decode(out: dict) -> None:
+    """The reference's decode bound to a (2, 2) mesh as its dry run binds
+    it (`bind_rules`, `NamedSharding`s from `param_pspecs` and
+    `kv_cache_pspecs`), for each of `C.DECODE_REF_SHARDED`: each device's
+    shards of the logits and the cache at each step."""
+    from repro.configs.base import (
+        LM_DECODE_RULES, LM_LONG_DECODE_RULES, bind_rules, merged_rules, named,
+    )
+    from repro.distributed.mesh_utils import resolve_pspec, set_mesh_rules
+    from repro.models import transformer as T
+    from repro.models.param import param_pspecs
+
+    for name in C.DECODE_REF_SHARDED:
+        _, shape, axes, kind = C.DECODE_CASES[name]
+        cfg, params, cache, tokens = _decode_inputs(name)
+        mesh = mesh_of(shape, axes)
+        rules = merged_rules(LM_DECODE_RULES if kind == "decode" else LM_LONG_DECODE_RULES)
+        B = tokens.shape[1]
+        with set_mesh_rules(mesh, rules) as lr:
+            psp = param_pspecs(T.lm_param_specs(cfg), lr)
+            ksp = T.kv_cache_pspecs(cfg, B, C.DECODE_SMAX, lr)
+            tsp = resolve_pspec(("batch", None), (B, 1), lr)
+            lsp = resolve_pspec(("batch", "vocab"), (B, cfg.vocab), lr)
+        step = jax.jit(bind_rules(lambda p, c, t: T.serve_step(p, c, t, cfg), mesh, rules),
+                       in_shardings=(named(mesh, psp), named(mesh, ksp), named(mesh, tsp)),
+                       out_shardings=(named(mesh, lsp), named(mesh, ksp)))
+        params = jax.device_put(params, named(mesh, psp))
+        cache = jax.device_put(cache, named(mesh, ksp))
+        _decode_steps(out, f"{name}/", step, params, cache,
+                      [jax.device_put(jnp.asarray(t), named(mesh, tsp)) for t in tokens],
+                      cfg.n_layers, shards=list(mesh.devices.flat))
+        out[f"{name}/spec/k"] = np.asarray(str(ksp["layers"][0]["k"]))
+
+
 def main(what: str, path: str) -> None:
     out: dict = {}
     if what == "moe":
@@ -259,6 +345,10 @@ def main(what: str, path: str) -> None:
         lm(out, collectives=True)
     elif what.startswith("lm-unsharded:"):
         lm_unsharded(out, int(what.split(":")[1]))
+    elif what == "decode":
+        decode(out)
+    elif what == "decode-unsharded":
+        decode_unsharded(out)
     else:
         raise SystemExit(f"unknown group {what!r}")
     np.savez(path, **out)

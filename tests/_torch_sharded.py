@@ -13,6 +13,7 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import _sharded_cases as C
 from repro_torch.distributed import collectives as coll
@@ -369,3 +370,90 @@ def lm_checkpoint_all(rank: int, world: int, store_dir: str, ckpt_dir: str) -> d
     dist.destroy_process_group()
     return {"saved": {k: v for k, v in saved.items() if k[:2] in ("p/", "m/", "v/")},
             "restored": restored, "step": step}
+
+
+# ---------------------------------------------------------------------------
+# the decode step on a mesh
+# ---------------------------------------------------------------------------
+
+
+class _OpNames(TorchDispatchMode):
+    """The aten ops run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.__name__.split(".")[0])
+        return func(*args, **(kwargs or {}))
+
+
+def decode_rules(kind: str) -> dict:
+    from repro_torch.configs.base import LM_DECODE_RULES, LM_LONG_DECODE_RULES, merged_rules
+
+    return merged_rules({"decode": LM_DECODE_RULES, "long": LM_LONG_DECODE_RULES}[kind])
+
+
+def decode_case(name: str):
+    """(the port's config of decode case `name`, its parameters as the
+    port's per-layer tree of CPU tensors, the cache {path: array} and the
+    tokens of each step, `C.decode_inputs`')."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import lm_param_specs, unstack_layers
+
+    arch, _, _, rules = C.DECODE_CASES[name]
+    cfg = get_arch(arch).smoke_cfg()
+    specs = lm_param_specs(cfg)
+    flat = C.lm_params({k: s.shape for k, s in C.flatten(specs).items()})
+    tree = unstack_layers(C.unflatten({k: torch.from_numpy(v) for k, v in flat.items()}, specs),
+                          cfg)
+    cache, tokens = C.decode_inputs(cfg, rules)
+    return cfg, tree, cache, tokens
+
+
+def decode_mesh_run(name: str, mesh) -> dict:
+    """Case `name` on this rank: its block of the drawn cache at
+    `C.DECODE_POS`, then `C.DECODE_STEPS` steps of `serve_step` on its
+    shards and rows: each step's logits (its vocab block) and cache blocks
+    {"step{i}/logits", "step{i}/layers/{li}/k|v", "step{i}/pos"}; then one
+    more step under a dispatch mode, whose aten op names are "ops"."""
+    from repro_torch.distributed.mesh_utils import resolve_pspec
+    from repro_torch.models.param import local_params
+    from repro_torch.models.transformer import (
+        MeshLayout, kv_cache_pspecs, local_kv_cache, serve_step,
+    )
+
+    cfg, tree, cache, tokens = decode_case(name)
+    lay = MeshLayout(cfg, mesh, decode_rules(C.DECODE_CASES[name][3]))
+    params = local_params(tree, lay.specs, mesh)
+    B = tokens.shape[1]
+    kv = local_kv_cache(cfg, B, C.DECODE_SMAX, lay, device="cpu")
+    spec = kv_cache_pspecs(cfg, B, C.DECODE_SMAX, lay.lr)["layers"][0]["k"]
+    for li, layer in enumerate(kv["layers"]):
+        for n in ("k", "v"):
+            layer[n].copy_(local_shard(torch.from_numpy(cache[f"layers/{li}/{n}"]), spec, mesh))
+        layer["pos"] = C.DECODE_POS
+    tok_spec = resolve_pspec(("batch", None), (B, 1), lay.lr)
+    rows = lambda i: local_shard(torch.from_numpy(tokens[i % len(tokens)]), tok_spec, mesh)
+    out = {}
+    for i in range(C.DECODE_STEPS):
+        logits, kv = serve_step(params, kv, rows(i), cfg, lay)
+        out[f"step{i}/logits"] = logits.numpy()
+        out[f"step{i}/pos"] = np.asarray(kv["layers"][0]["pos"])
+        for li, layer in enumerate(kv["layers"]):
+            for n in ("k", "v"):
+                out[f"step{i}/layers/{li}/{n}"] = layer[n].numpy().copy()
+    with _OpNames() as ops:
+        serve_step(params, kv, rows(0), cfg, lay)
+    out["ops"] = sorted(ops.names)
+    return out
+
+
+def decode_mesh_all(rank: int, world: int, store_dir: str) -> dict:
+    """Every case of `C.DECODE_CASES` on this rank: {case: `decode_mesh_run`'s}."""
+    meshes = _lm_meshes(store_dir, "decode", rank)
+    out = {name: decode_mesh_run(name, meshes[shape, axes])
+           for name, (_, shape, axes, _) in C.DECODE_CASES.items()}
+    dist.destroy_process_group()
+    return out

@@ -13,12 +13,21 @@ rank 0 of a `fake` process group (`launch/dryrun.py` `fake_process_mesh`,
     grows with the local batch, and the peak per device exceeds the state.
   - A production cell, Qwen3-4B train_4k on 16x16, as rank 0 of a fake
     world of 256: non-null collective bytes, temporaries and a collective
-    term; the sharded ogb_products step likewise.
+    term; the sharded ogb_products step and the decode cells (Qwen3-4B
+    decode_32k under `LM_DECODE_RULES`, Gemma2-27B long_500k under
+    `LM_LONG_DECODE_RULES`) likewise, each decode cell's cache bytes per
+    device equal to a reckoning by hand.
+  - The Qwen3-4B smoke config's decode step on (2, 2) under
+    `LM_DECODE_RULES` on rank 0's shards and its block of the cache: each
+    kind's output bytes equal a reckoning by hand (the FSDP gathers, the q
+    activation's gather over "model", the psums that close each block, the
+    softmax's max and sum and the partial outputs over `kv_seq`).
   - A collective over a group rank 0 is not in runs no op, so the dry run
     counts rank 0's own collectives only.
 """
 
 import dataclasses
+import functools
 import math
 
 import pytest
@@ -28,12 +37,14 @@ import torch.distributed as dist
 from _torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from repro_torch.analysis.roofline import count_step
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import LM_TRAIN_RULES, merged_rules, train_step_fn
+from repro_torch.configs.base import LM_DECODE_RULES, LM_TRAIN_RULES, merged_rules, \
+    train_step_fn
 from repro_torch.distributed.mesh_utils import layout, local_shard, resolve_pspec
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.param import abstract_params, local_params, tree_leaves
-from repro_torch.models.transformer import MeshLayout, lm_param_specs, loss_fn, unstack_layers
+from repro_torch.models.transformer import MeshLayout, lm_param_specs, local_kv_cache, \
+    loss_fn, serve_step, unstack_layers
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.train_step import TrainState, trainable
 
@@ -117,16 +128,93 @@ def test_reckoned_peak_grows_with_the_local_batch():
     assert small.temp_bytes + state > state
 
 
-@pytest.mark.parametrize("arch,shape", [("qwen3-4b", "train_4k"), ("pna", "ogb_products")])
+@functools.lru_cache(maxsize=None)
+def _record(arch: str, shape: str) -> dict:
+    return dryrun.run_cell(arch, shape, "single", None)
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-4b", "train_4k"), ("pna", "ogb_products"),
+                                        ("qwen3-4b", "decode_32k"), ("gemma2-27b", "long_500k")])
 def test_production_cell_counted_as_rank_zero_of_256(arch, shape):
-    rec = dryrun.run_cell(arch, shape, "single", None)
+    rec = _record(arch, shape)
     r, m = rec["roofline"], rec["memory"]
     assert rec["status"] == "ok" and rec["counted_on"] == "rank0" and rec["meta"]["per_rank"]
     assert r["collective_bytes"] > 0 and r["t_collective_s"] > 0
-    assert set(r["collectives"]) >= {"all-reduce", "all-to-all"}
+    # a decode step has no backward: FSDP gathers, no reduce-scatter's all-to-all
+    kinds = {"all-reduce", "all-gather"} if rec["kind"] == "decode" else \
+        {"all-reduce", "all-to-all"}
+    assert set(r["collectives"]) >= kinds
     assert m["temp_bytes"] > 0 and m["peak_bytes"] == m["argument_bytes"] + m["temp_bytes"]
     assert "collective" in r["bottleneck_over"]
     assert "x None" not in dryrun.result_line(rec)
+
+
+@pytest.mark.parametrize("arch,shape,want", [
+    # layers x (k, v) x (B_loc, Hkv, S_loc, Dh) x bf16: the batch of 128 over
+    # "data" (8 rows) and 32,768 positions over "model" (2,048), kv heads whole
+    ("qwen3-4b", "decode_32k", 36 * 2 * (8 * 8 * 2048 * 128) * 2),
+    # the batch of 1 whole, 524,288 positions over ("data", "model") (2,048)
+    ("gemma2-27b", "long_500k", 46 * 2 * (1 * 16 * 2048 * 128) * 2),
+])
+def test_decode_cache_bytes_per_device(arch, shape, want):
+    rec = _record(arch, shape)
+    assert rec["memory"]["argument_bytes_by_arg"][1] == want
+
+
+DECODE_B, DECODE_SMAX = 4, 48
+
+
+def _decode_step():
+    """(the smoke decode step's StepCount on rank 0 of (2, 2), the config,
+    its layout's specs)."""
+    cfg = get_arch("qwen3-4b").smoke_cfg()
+    rules = merged_rules(LM_DECODE_RULES)
+    with dryrun.fake_process_mesh(MESH) as mesh:
+        lay = MeshLayout(cfg, mesh, rules)
+        params = local_params(unstack_layers(abstract_params(lm_param_specs(cfg)), cfg),
+                              lay.specs, mesh)
+        kv = local_kv_cache(cfg, DECODE_B, DECODE_SMAX, lay, device="meta")
+        tok = torch.empty((DECODE_B, 1), dtype=torch.int32, device="meta")
+        tok = local_shard(tok, resolve_pspec(("batch", None), (DECODE_B, 1), lay.lr), mesh)
+        _, count = count_step(lambda: serve_step(params, kv, tok, cfg, lay), (), per_rank=True)
+    return count, cfg, lay.specs
+
+
+def test_decode_collective_bytes_equal_a_reckoning_by_hand():
+    count, cfg, specs = _decode_step()
+    sizes = dict(zip(MESH.axes, MESH.sizes))
+    rows = DECODE_B // sizes["data"]  # one token a row
+    d, V, H, Hk, Dh, f = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.d_ff
+    f32 = 4
+
+    def local(shape, spec):
+        n = math.prod(sizes[a] for axes in layout(spec).values() for a in axes)
+        return math.prod(shape) * f32 // n
+
+    shapes = {"wq": (d, H * Dh), "wk": (d, Hk * Dh), "wv": (d, Hk * Dh), "wo": (H * Dh, d),
+              "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d), "input_norm": (d,),
+              "post_attn_norm": (d,), "q_norm": (Dh,), "k_norm": (Dh,)}
+    leaves = [((V, d), specs["embed"]), ((d, V), specs["unembed"]),
+              ((d,), specs["final_norm"])]
+    for sp in specs["layers"]:
+        flat = dict(sp["attn"], **sp["ffn"], input_norm=sp["input_norm"],
+                    post_attn_norm=sp["post_attn_norm"])
+        leaves += [(shapes[k], s) for k, s in flat.items()]
+    # each leaf split over "data" gathered whole along it (FSDP), once
+    gathered = sum(local(shape, spec) * sizes["data"] for shape, spec in leaves
+                   if "data" in sum(layout(spec).values(), ()))
+    # and every layer's q activation, its heads gathered over "model"
+    gathered += cfg.n_layers * rows * H * Dh * f32
+    act = rows * d * f32  # one (B_loc, 1, d) activation
+    stat = rows * H * f32  # the softmax's max or sum, a q head
+    reduce = (act  # the embedding's psum over "model"
+              # each layer: the max and the sum over kv_seq, the partial
+              # outputs (float32), attention's and the FFN's psums
+              + cfg.n_layers * (2 * stat + rows * H * Dh * f32 + 2 * act))
+    assert count.collective_bytes_by_kind == {"all-gather": float(gathered),
+                                              "all-reduce": float(reduce)}
+    assert count.collective_bytes == gathered + reduce
 
 
 def test_a_group_without_rank_zero_runs_no_op():
