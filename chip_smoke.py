@@ -109,7 +109,9 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      counting what a numpy search under the step's caps marks, one burst
      of each cuda run profiled; then the serving launcher
      (`launch/serve.py --scheme landmark`), its landmark index on the card
-     bit-equal to the CPU's, its row derived from the cost model;
+     bit-equal to the CPU's, its row derived from the cost model; last it
+     writes the rows hash-placed over two storage shards, the router's
+     embedding and the stream for phase 13's ranks;
  12. plans and runs the examples: the reference's three examples at its
      defaults on the card (the quickstart's rows, labelled cost-model
      where they are; DIN trained 80 steps, then served with synced walls;
@@ -149,7 +151,20 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc`, then:
      unsharded loss, with TF32 matmuls as a control that must fall outside;
      `compressed_psum` at Qwen3-4B's shapes against the CPU; before the
      ranks, a world of one over NCCL runs the expert-parallel layer and the
-     PNA loss (NCCL's branch of each collective).
+     PNA loss (NCCL's branch of each collective). DIN at full width on the
+     (2, 2) mesh under DIN_RULES (the tables' rows over "model", read
+     through their owners): in float32 score at serve_p99 and serve_bulk
+     (cut to 65,536 rows), retrieval of 1,000,000 candidates (split over
+     both axes: exchanged by owner) and one train step at train_batch
+     (65,536 rows), under set_sync_debug_mode("error") but inside gloo's
+     collectives, against the world of one's, a TF32 control above the
+     tolerances, the step's peak memory beside the dry run's reckoning.
+     Last, the paper's cluster across ranks: the grouting configuration's
+     three shapes served from phase 11's graph by the four ranks, a
+     processor each, over two storage shards, every served query held to
+     the capped search and the world of one's count, the layouts and
+     backends equal on every rank, every processor serving, each rank's
+     frontier launches counted.
 
 Phase 1 also holds segment_sum and embedding_bag against their plain
 versions in float64 over case grids (the test grids and edge cases; for
@@ -4082,14 +4097,17 @@ def grouting_serving(device):
     none; burst GROUTING_PROFILED of each cuda run profiled. Then the
     serving launcher (`launch/serve.py --scheme landmark`, its defaults) on
     the card, its landmark index bit-equal to one built on the CPU.
-    Returns (figures, the frontier launches of the cuda runs by wrapper)."""
+    Last, it writes what phase 13's four ranks serve (`grouting_mesh_inputs`).
+    Returns (figures, the frontier launches of the cuda runs by wrapper,
+    the hand-off to phase 13: each shape's capped count of every query of
+    the stream, this world of one's counts and hit rate, the files)."""
     import torch.distributed as dist
 
     from repro_torch.configs import grouting
     from repro_torch.core.embedding import EmbedConfig, build_graph_embedding
     from repro_torch.core.landmarks import build_landmark_index
     from repro_torch.core.serving import capped_ball_size, untruncated_size
-    from repro_torch.core.storage import build_storage
+    from repro_torch.core.storage import build_storage, make_serving_storage
     from repro_torch.core.workloads import hotspot_workload
     from repro_torch.distributed.mesh import init_mesh
     from repro_torch.graph.csr import to_padded
@@ -4118,7 +4136,6 @@ def grouting_serving(device):
                              f"{adj.max_degree} (config: {grouting.N_ROWS} rows)")
     tier = timed("storage", lambda: build_storage(adj, n_shards=1, device=device))
     n_rows = adj.n_rows
-    del adj
     li = timed("landmarks", lambda: build_landmark_index(
         g, n_processors=1, n_landmarks=GROUTING_LANDMARKS, device=device))
     setup["landmarks_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4152,9 +4169,11 @@ def grouting_serving(device):
                           rank=0, world_size=1)
     launches = dict.fromkeys(KERNELS_BY_LAYOUT.values(), 0)
     quiet = lambda *_a, **_k: None  # noqa: E731
+    handoff = dict(shapes={})  # what phase 13's four ranks are held to
     try:
         if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
             raise AssertionError(f"grouting on {dev}: backend {dist.get_backend()}")
+        storage = make_serving_storage(tier, mesh.axis_index("model"), dev)
         for shape in grouting.SHAPES:
             base = grouting.model_cfg(shape)
             S = mesh.shape["model"]
@@ -4177,7 +4196,7 @@ def grouting_serving(device):
                     LAUNCHES.clear()  # counts of this run only
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    res = serve_bursts(mesh, dev, c, tier, emb, nodes, bursts=GROUTING_BURSTS,
+                    res = serve_bursts(mesh, dev, c, storage, emb, nodes, bursts=GROUTING_BURSTS,
                                        backlog=GROUTING_BACKLOG, say=quiet, on_step=hook,
                                        record=True)
                     torch.cuda.synchronize()
@@ -4235,6 +4254,18 @@ def grouting_serving(device):
                     else:
                         held += 1
             t_oracle = time.perf_counter() - t_oracle
+            # for phase 13's mesh: every query of the stream under the caps,
+            # and this world of one's counts and hit rate
+            for q in np.unique(nodes).tolist():
+                if q not in capped:
+                    capped[q] = capped_ball_size(g, q, cfg.hops, F, cap)
+            one = {}
+            for queries, counts, _ in first["record"]:
+                one.update((q, c) for q, c in zip(queries.tolist(), counts.tolist()) if q >= 0)
+            handoff["shapes"][shape] = dict(
+                capped=capped, one_counts=one,
+                one_hit=1 - sum(first["misses"]) / max(sum(first["touched"]), 1),
+                one_burst_s=float(np.median(first["burst_s"])))
             cell = dict(shape=shape, hops=cfg.hops, queries_per_proc=B, max_frontier=F,
                         chain_depth=cfg.chain_depth, storage_shards=(base.n_storage_shards, S),
                         read_capacity=(base.read_capacity, cfg.read_capacity),
@@ -4289,13 +4320,15 @@ def grouting_serving(device):
     finally:
         dist.destroy_process_group()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del g, tier, emb, deg
+    del tier
+    handoff.update(grouting_mesh_inputs(adj, emb, nodes))
+    del g, adj, emb, deg
     out["launcher"] = grouting_launcher(device)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[grouting] phase 11 in {out['phase_s']:.1f} s, peak {out['peak_gb']:.2f} GB; "
         f"frontier launches {launches}; {nvidia_smi()}")
-    return out, launches
+    return out, launches, handoff
 
 
 def grouting_launcher(device) -> dict:
@@ -4334,6 +4367,208 @@ def grouting_launcher(device) -> dict:
     return dict(wall_s=wall, row=res.row(), derived_qps=res.throughput_qps,
                 derived_mean_response_ms=res.mean_response_ms, hit_rate=res.hit_rate,
                 stolen=res.stolen, landmark_index_card_eq_cpu=True)
+
+
+# The paper's cluster across ranks (phase 13): the grouting configuration's
+# three shapes served by four gloo ranks on (data, model) (2, 2), every rank
+# a query processor (`graph_serving`: all mesh axes flattened) over two
+# storage shards, from the graph phase 11 built (`grouting_mesh_inputs`)
+GROUTING_MESH = (2, 2)
+GROUTING_MESH_DIR = "build/grouting_mesh"  # phase 11 writes, phase 13's ranks read (git-ignored)
+GROUTING_MESH_BURSTS = 3  # arrival bursts a run (1.5x the four processors' slots), then the drain
+
+
+def grouting_mesh_runs(shape: str) -> tuple:
+    """(backend, layout) of each run of a shape on the mesh: the cuda
+    backend with both layouts, the scatter backend with the dense layout on
+    serve_1hop."""
+    runs = (("cuda", "dense"), ("cuda", "packed"))
+    return runs + ((("scatter", "dense"),) if shape == "serve_1hop" else ())
+
+
+def grouting_mesh_cfg(shape: str):
+    """The shape's config over the mesh's storage shards: the config's 16
+    shards fold into GROUTING_MESH[1], a processor keeping the read budget
+    it had over all of them (read_capacity x 16 / S), so B x F <=
+    read_capacity x read_retry and no read is lost."""
+    from repro_torch.configs import grouting
+
+    base, S = grouting.model_cfg(shape), GROUTING_MESH[1]
+    cfg = dataclasses.replace(base, n_storage_shards=S,
+                              read_capacity=base.read_capacity * base.n_storage_shards // S)
+    if cfg.queries_per_proc * cfg.max_frontier > cfg.read_capacity * cfg.read_retry:
+        raise AssertionError(f"grouting mesh {shape}: B x F over the read budget")
+    return cfg
+
+
+def grouting_mesh_inputs(adj, emb, nodes) -> dict:
+    """Phase 11's hand-off to the mesh: the padded rows hash-placed over
+    GROUTING_MESH[1] shards on the host (`build_storage`), each shard's rows,
+    degrees and continuations to a file of its own, the placement tables,
+    the embed router's embedding and the query stream, under
+    GROUTING_MESH_DIR."""
+    import shutil
+
+    from repro_torch.core.storage import build_storage
+
+    t = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), GROUTING_MESH_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tier = build_storage(adj, n_shards=GROUTING_MESH[1], device="cpu")
+    for s in range(tier.n_shards):
+        torch.save({k: getattr(tier, f"shard_{k}")[s].clone() for k in ("rows", "deg", "cont")},
+                   os.path.join(root, f"shard_{s}.pt"))
+    torch.save(dict(owner=tier.owner, loc=tier.loc), os.path.join(root, "tables.pt"))
+    torch.save(dict(coords=emb.coords, landmarks=emb.landmarks, lm_coords=emb.lm_coords,
+                    config=dataclasses.asdict(emb.config), nodes=nodes),
+               os.path.join(root, "router.pt"))
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    log(f"[grouting] mesh inputs: {tier.n_rows:,} rows over {tier.n_shards} shards "
+        f"({tier.rows_per_shard:,} a shard), {nbytes / 1e9:.2f} GB under {GROUTING_MESH_DIR} in "
+        f"{time.perf_counter() - t:.1f} s")
+    return dict(dir=root, shards=tier.n_shards, rows_per_shard=tier.rows_per_shard,
+                bytes=nbytes)
+
+
+def grouting_mesh_rank(mesh, dev, rank, root) -> dict:
+    """The grouting configuration on the mesh, this rank's part: its
+    storage shard (the model coordinate's) and the placement tables on the
+    card, the embed router and the stream on rank 0; each shape's runs
+    (`grouting_mesh_runs`) through `serve_bursts` with its record, the
+    frontier launches of each counted from 0. Returns by run this rank's
+    record (queries, counts, stats a burst), its walls a burst, the mesh's
+    touched rows and misses a burst, rank 0's admission totals, and
+    whether its record and final cache equal the shape's first run's."""
+    from repro_torch.core.cache import CacheState
+    from repro_torch.core.embedding import EmbedConfig, GraphEmbedding
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.serve_graph import serve_bursts
+
+    t0 = time.perf_counter()
+    own = torch.load(os.path.join(root, f"shard_{mesh.axis_index('model')}.pt"))
+    tables = torch.load(os.path.join(root, "tables.pt"))
+    storage = {k: v.to(dev) for k, v in dict(own, **tables).items()}
+    del own, tables
+    emb = nodes = None
+    if rank == 0:
+        r = torch.load(os.path.join(root, "router.pt"), weights_only=False)
+        emb = GraphEmbedding(coords=r["coords"], landmarks=r["landmarks"],
+                             lm_coords=r["lm_coords"], config=EmbedConfig(**r["config"]))
+        nodes = r["nodes"]
+    quiet = lambda *_a, **_k: None  # noqa: E731
+    out = {"load_s": time.perf_counter() - t0, "runs": {}}
+    from repro_torch.configs import grouting
+
+    for shape in grouting.SHAPES:
+        cfg = grouting_mesh_cfg(shape)
+        first = None
+        for backend, layout in grouting_mesh_runs(shape):
+            c = dataclasses.replace(cfg, expand_backend=backend, visited_layout=layout)
+            LAUNCHES.clear()
+            _sync(dev)
+            t = time.perf_counter()
+            res = serve_bursts(mesh, dev, c, storage, emb, nodes, bursts=GROUTING_MESH_BURSTS,
+                               backlog=GROUTING_BACKLOG, say=quiet, record=True)
+            _sync(dev)
+            wall = time.perf_counter() - t
+            cache = {f.name: getattr(res["cache"], f.name).cpu().numpy()
+                     for f in dataclasses.fields(CacheState)}
+            if first is None:
+                first = (res["record"], cache)
+            same = (len(res["record"]) == len(first[0]) and
+                    all(np.array_equal(x, y) for a, b in zip(res["record"], first[0])
+                        for x, y in zip(a, b)) and
+                    all(np.array_equal(v, first[1][k]) for k, v in cache.items()))
+            run = {k: v for k, v in res.items() if k != "cache"}
+            run.update(wall_s=wall, launches={k: v for k, v in LAUNCHES.items() if v},
+                       same_as_first=same)
+            out["runs"][f"{shape}/{backend}/{layout}"] = run
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def check_grouting_mesh(ranks, handoff) -> tuple:
+    """Hold and log the grouting runs of the four ranks: every query served
+    on any rank counts what `capped_ball_size` gives, less one, and what
+    phase 11's world of one counted for it; each rank's record and final
+    cache equal across layouts and backends; every processor serves some
+    queries of every run; the ranks served what rank 0 placed; each cuda
+    run launched its layout's frontier kernel on every rank and no other,
+    the scatter run none. Returns (figures, the frontier launches of the
+    cuda runs summed over the ranks, by wrapper)."""
+    from repro_torch.configs import grouting
+
+    launches = dict.fromkeys(KERNELS_BY_LAYOUT.values(), 0)
+    figures = dict(mesh=GROUTING_MESH, bursts=GROUTING_MESH_BURSTS, shards=handoff["shards"],
+                   rows_per_shard=handoff["rows_per_shard"], input_bytes=handoff["bytes"],
+                   shapes=[])
+    for shape in grouting.SHAPES:
+        cfg, h = grouting_mesh_cfg(shape), handoff["shapes"][shape]
+        cell = dict(shape=shape, read_capacity=cfg.read_capacity, read_retry=cfg.read_retry,
+                    reads_needed=cfg.queries_per_proc * cfg.max_frontier,
+                    one_hit=h["one_hit"], one_burst_s=h["one_burst_s"], runs=[])
+        for backend, layout in grouting_mesh_runs(shape):
+            key = f"{shape}/{backend}/{layout}"
+            runs = [r["grouting"]["runs"][key] for r in ranks]
+            kind = KERNELS_BY_LAYOUT[layout]
+            served, matched = [], 0
+            for rank, run in enumerate(runs):
+                if not run["same_as_first"]:
+                    raise AssertionError(f"grouting mesh {key}: rank {rank}'s record or cache "
+                                         f"differs from the shape's first run")
+                want = {kind: run["launches"].get(kind, 0)} if backend == "cuda" else {}
+                if run["launches"] != want or (backend == "cuda" and not want[kind]):
+                    raise AssertionError(f"grouting mesh {key}: rank {rank} launched "
+                                         f"{run['launches']}")
+                mine = 0
+                for queries, counts, _ in run["record"]:
+                    for q, c in zip(queries.tolist(), counts.tolist()):
+                        if q < 0:
+                            continue
+                        mine += 1
+                        if c != h["capped"][q] - 1:
+                            raise AssertionError(f"grouting mesh {key}: rank {rank} query {q} "
+                                                 f"counts {c}, the capped search "
+                                                 f"{h['capped'][q]} - 1")
+                        if q in h["one_counts"]:
+                            matched += 1
+                            if c != h["one_counts"][q]:
+                                raise AssertionError(f"grouting mesh {key}: rank {rank} query "
+                                                     f"{q} counts {c}, the world of one "
+                                                     f"{h['one_counts'][q]}")
+                served.append(mine)
+                if backend == "cuda":
+                    launches[kind] += run["launches"][kind]
+            lead = runs[0]
+            for rank, run in enumerate(runs):
+                if [x[2].tolist() for x in run["record"]] != \
+                        [x[2].tolist() for x in lead["record"]]:
+                    raise AssertionError(f"grouting mesh {key}: rank {rank}'s stats differ")
+            if min(served) == 0 or sum(served) != lead["served"]:
+                raise AssertionError(f"grouting mesh {key}: served by rank {served}, rank 0 "
+                                     f"placed {lead['served']}")
+            hit = 1 - sum(lead["misses"]) / max(sum(lead["touched"]), 1)
+            walls = [float(np.median(run["burst_s"])) for run in runs]
+            cell["runs"].append(dict(
+                backend=backend, layout=layout, served_by_rank=served, placed=lead["served"],
+                dropped=lead["dropped"], bursts=len(lead["record"]), hit=hit,
+                burst_s_median_by_rank=walls, wall_s_by_rank=[r["wall_s"] for r in runs],
+                launches_by_rank=[r["launches"].get(kind, 0) for r in runs],
+                held_to_world_of_one=matched))
+            log(f"[grouting-mesh] {key}: {GROUTING_MESH[0]} x {GROUTING_MESH[1]} gloo ranks (a "
+                f"processor a rank, {GROUTING_MESH[1]} storage shards), {len(lead['record'])} "
+                f"bursts: served by rank {served} of {lead['served']} placed, "
+                f"{lead['dropped']} dropped; every count = capped search - 1, {matched} also "
+                f"held to the world of one's; hit {hit:.4f} (world of one {h['one_hit']:.4f}); "
+                f"median wall a burst by rank " + " ".join(f"{w:.3f}" for w in walls) +
+                f" s (world of one over NCCL {h['one_burst_s']:.3f} s; gloo through the host); "
+                + (f"{kind} launches by rank {[r['launches'][kind] for r in runs]}"
+                   if backend == "cuda" else "no hand-written launch"))
+        figures["shapes"].append(cell)
+    log(f"[grouting-mesh] every rank's record and final cache equal across layouts and "
+        f"backends; frontier launches summed over the four ranks {launches}")
+    return figures, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4858,16 +5093,19 @@ def gc_grads(step: int, rank: int) -> dict:
     return out
 
 
-def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dict:
+def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str,
+                 grouting_dir: str) -> dict:
     """One of the phase's four ranks: gloo on `device_type` ("cuda": every
     rank on cuda:0). In order, every rank alike: the gloo route on the
     device's tensors (float32 and bf16), the LM step on the (2, 2) mesh
-    (`mesh_lm_rank`), the decode step on it (`mesh_decode_rank`), the
-    expert-parallel MoE layer cases, the
+    (`mesh_lm_rank`), the decode step on it (`mesh_decode_rank`), DIN on it
+    (`mesh_din_rank`), the expert-parallel MoE layer cases, the
     expert-parallel prefill, the PNA forward at the cut ogb_products size,
     the four archs' losses and gradients on the cut graph, compressed_psum
-    over a "pod" axis. Returns figures only (no tensor crosses back but
-    the prefill's last logits)."""
+    over a "pod" axis, and last the grouting configuration served over the
+    mesh from the graph under `grouting_dir` (`grouting_mesh_rank`).
+    Returns figures only (no tensor crosses back but the prefill's last
+    logits and the grouting records)."""
     import torch.distributed as dist
 
     from repro_torch.distributed.mesh import ProcessMesh, init_mesh
@@ -4924,6 +5162,8 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
     _empty_cache(dev)
     out["decode_mesh"] = mesh_decode_rank(mesh, dev, rank, shard_dir)
     _empty_cache(dev)
+    out["din_mesh"] = mesh_din_rank(mesh, dev, rank, shard_dir)
+    _empty_cache(dev)
 
     # expert-parallel MoE layer at qwen2-moe's full width
     t = time.perf_counter()
@@ -4943,6 +5183,8 @@ def sharded_rank(rank: int, world: int, shard_dir: str, device_type: str) -> dic
     out["zoo"] = zoo_dist_rank(mesh, dev, shard_dir)
     _empty_cache(dev)
     out["compression"] = gc_rank(meshes["pod"], dev, rank)
+    _empty_cache(dev)
+    out["grouting"] = grouting_mesh_rank(mesh, dev, rank, grouting_dir)
     if dev.type == "cuda":
         out["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
@@ -5440,6 +5682,322 @@ def mesh_decode_rank(mesh, dev, rank, shard_dir) -> dict:
     return dict(f32=f32, control=control, f32_s=f32_s, owned=[i for i, _ in mine],
                 kv_block=lay.kv_block, wall_ms=wall_ms, event_ms=event_ms, bf16_finite=finite,
                 peak_allocated=peak, allocated_before=before, s=time.perf_counter() - t0)
+
+
+# DIN on a mesh: the reference's DIN cells at full width (`model_cfg()`) on
+# (data, model) (2, 2) under DIN_RULES (`mesh_din_rank`): the tables' rows
+# and the MLPs' columns that divide over "model", the batch over "data",
+# the retrieval candidates over ("data", "model")
+MESH_DIN_BATCH = {"train_batch": 65_536, "serve_p99": 512,
+                  "serve_bulk": 65_536}  # serve_bulk cut from 262,144 (PERF.md, section 4)
+MESH_DIN_BULK_WHOLE = DIN_BATCHES["serve_bulk"]  # its peak is reckoned, as the cut's reason
+MESH_DIN_CANDS = 1_000_000
+MESH_DIN_SEED = 7
+# Each cell's scores (of their max), the loss (relative), m and v (of each
+# leaf's max): the ranks in float32, TF32 off, against the world of one's
+# step; the ranks with TF32 matmuls are a control that must land above.
+# Each is the geometric mean of the largest float32 and the smallest control
+# reading of the first card run, rounded down to a 1-2-5 step (PERF.md:
+# 5.52e-7 / 4.85e-4, 8.55e-8 / 1.54e-6 and 8.78e-7 / 8.09e-2). The table
+# shards' read rows after the step (largest absolute difference) likewise:
+# 1.86e-8 / 5.52e-4
+MESH_DIN_TOL = 1e-5
+MESH_DIN_LOSS_TOL = 2e-7
+MESH_DIN_STATE_TOL = 2e-4
+MESH_DIN_TABLE_TOL = 2e-6
+
+
+@contextlib.contextmanager
+def sync_checked(dev):
+    """`torch.cuda.set_sync_debug_mode("error")` over the block, lifted
+    inside torch.distributed's collectives only: gloo stages a CUDA tensor
+    through the host and syncs its stream by design (NCCL would not)."""
+    if dev.type != "cuda":
+        yield
+        return
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "all_to_all_single", "broadcast")
+    orig = {n: getattr(dist, n) for n in names}
+
+    def lifted(fn):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    for n in names:
+        setattr(dist, n, lifted(orig[n]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for n in names:
+            setattr(dist, n, orig[n])
+
+
+def mesh_din_inputs() -> dict:
+    """{cell: its global batch, CPU tensors}: `din_batch` draws of
+    MESH_DIN_BATCH rows, and one user's history against MESH_DIN_CANDS
+    candidates drawn over the tables."""
+    from repro_torch.configs import din as conf
+    from repro_torch.data.recsys import din_batch
+
+    cfg = conf.model_cfg()
+    kw = dict(seq_len=cfg.seq_len, n_items=cfg.n_items, n_cats=cfg.n_cats,
+              d_profile=cfg.d_profile, seed=MESH_DIN_SEED)
+    out = {}
+    for i, (cell, B) in enumerate(MESH_DIN_BATCH.items()):
+        b = din_batch(i, B, **kw)
+        if cell != "train_batch":
+            b.pop("label")
+        out[cell] = {k: torch.from_numpy(v) for k, v in b.items()}
+    user = din_batch(len(MESH_DIN_BATCH), 1, **kw)
+    rng = np.random.default_rng([MESH_DIN_SEED, len(MESH_DIN_BATCH)])
+    out["retrieval_cand"] = {k: torch.from_numpy(v) for k, v in dict(
+        hist_items=user["hist_items"], hist_cats=user["hist_cats"], profile=user["profile"],
+        cand_items=rng.integers(0, cfg.n_items, MESH_DIN_CANDS).astype(np.int32),
+        cand_cats=rng.integers(0, cfg.n_cats, MESH_DIN_CANDS).astype(np.int32)).items()}
+    return out
+
+
+def mesh_din_params(device) -> dict:
+    """DIN's parameters at full width, drawn on `device` from MESH_DIN_SEED."""
+    from repro_torch.configs import din as conf
+    from repro_torch.models.param import init_params
+    from repro_torch.models.recsys import din as model
+
+    return init_params(model.param_specs(conf.model_cfg()),
+                       torch.Generator(device=device).manual_seed(MESH_DIN_SEED), device)
+
+
+def mesh_din_step(loss_fn, mesh=None, specs=None):
+    """One AdamW step of the dry run's optimizer (weight decay 0) at the base
+    rate (warmup 0)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    return make_train_step(loss_fn, AdamWConfig(weight_decay=0.0), warmup=0, total_steps=10,
+                           mesh=mesh, specs=specs)
+
+
+def mesh_din_ref(device, shard_dir) -> dict:
+    """The world of one's side of DIN on the mesh, in float32: `score` at
+    serve_p99 and serve_bulk, `retrieval_scores` of the MESH_DIN_CANDS
+    candidates and one train step at train_batch; each rank's block of the
+    scores, of m and v, of the tables after the step, with the loss, to a
+    file a rank under `shard_dir`."""
+    from repro_torch.configs import din as conf
+    from repro_torch.configs.base import merged_rules
+    from repro_torch.distributed.mesh_utils import LogicalRules, local_shard, resolve_pspec
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.param import param_pspecs, tree_map
+    from repro_torch.models.recsys import din as model
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = conf.model_cfg()
+    t0 = time.perf_counter()
+    params = mesh_din_params(device)
+    inputs = mesh_din_inputs()
+    lr = LogicalRules(MeshShape(("data", "model"), MESH_LM_SHAPE), merged_rules(conf.DIN_RULES))
+    specs = param_pspecs(model.param_specs(cfg), lr)
+    scores, walls = {}, {}
+    with torch.no_grad():
+        for cell in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            b = {k: v.to(device) for k, v in inputs[cell].items()}
+            _sync(device)
+            t = time.perf_counter()
+            fn = model.retrieval_scores if cell == "retrieval_cand" else model.score
+            scores[cell] = fn(params, b, cfg)
+            _sync(device)
+            walls[cell] = time.perf_counter() - t
+            del b
+    state = init_train_state(tree_map(lambda p: p.clone(), params))
+    step = mesh_din_step(lambda p, bb: model.loss_fn(p, bb, cfg))
+    batch = {k: v.to(device) for k, v in inputs["train_batch"].items()}
+    _sync(device)
+    t = time.perf_counter()
+    state, met = step(state, batch)
+    _sync(device)
+    walls["train_batch"] = time.perf_counter() - t
+    del batch
+    head = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]), lr=float(met["lr"]))
+    cand = {cell: resolve_pspec(("cand",) if cell == "retrieval_cand" else ("batch",),
+                                tuple(scores[cell].shape), lr) for cell in scores}
+    for r in range(SHARD_WORLD):
+        at = _RankOf(r)
+        blk = lambda x, sp: local_shard(x, sp, at).cpu()  # noqa: E731
+        torch.save(dict(head, specs=specs, cand=cand,
+                        scores={c: blk(v, cand[c]) for c, v in scores.items()},
+                        m={k: blk(v, specs[k]) for k, v in state.opt_state["m"].items()},
+                        v={k: blk(v, specs[k]) for k, v in state.opt_state["v"].items()},
+                        tables={k: blk(state.params[k].detach(), specs[k])
+                                for k in ("item_table", "cat_table")}),
+                   os.path.join(shard_dir, f"din_mesh_{r}.pt"))
+    del state, params, scores
+    _empty_cache(device)
+    return dict(head, walls=walls, s=time.perf_counter() - t0)
+
+
+def mesh_din_reckoned() -> dict:
+    """The dry run's rule for a rank's float32 train step at train_batch
+    (`count_step` per rank on meta tensors, as rank 0 of a fake world of
+    4): its state bytes (shards, m, v, step, its rows), the temporaries'
+    peak, their sum and its collectives; and likewise the peak of a rank's
+    `score` at the whole serve_bulk batch (MESH_DIN_BULK_WHOLE,
+    "bulk_whole_peak_bytes")."""
+    from repro_torch.analysis.roofline import count_step
+    from repro_torch.configs import din as conf
+    from repro_torch.configs.base import merged_rules
+    from repro_torch.launch.dryrun import fake_process_mesh, tensors
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.param import abstract_params, local_params
+    from repro_torch.models.recsys import din as model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import TrainState, trainable
+
+    cfg = conf.model_cfg()
+    t = time.perf_counter()
+    B = MESH_DIN_BATCH["train_batch"]
+    with fake_process_mesh(MeshShape(("data", "model"), MESH_LM_SHAPE)) as mesh:
+        lay = model.MeshLayout(cfg, mesh, merged_rules(conf.DIN_RULES))
+        params = trainable(local_params(abstract_params(model.param_specs(cfg)), lay.specs,
+                                        mesh))
+        state = TrainState(params, adamw_init(params),
+                           torch.empty((), dtype=torch.int32, device="meta"))
+        meta = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt, device="meta")  # noqa
+        batch = lay.local_batch(dict(
+            hist_items=meta((B, cfg.seq_len)), hist_cats=meta((B, cfg.seq_len)),
+            cand_item=meta((B,)), cand_cat=meta((B,)),
+            profile=meta((B, cfg.d_profile), torch.float32), label=meta((B,))))
+        step = mesh_din_step(lambda p, b: model.loss_fn(p, b, cfg, lay), mesh, lay.specs)
+        _, count = count_step(step, (state, batch), per_rank=True)
+        state_bytes = sum(x.numel() * x.element_size() for x in tensors((state, batch)))
+        Bw = MESH_DIN_BULK_WHOLE
+        bulk = lay.local_batch(dict(
+            hist_items=meta((Bw, cfg.seq_len)), hist_cats=meta((Bw, cfg.seq_len)),
+            cand_item=meta((Bw,)), cand_cat=meta((Bw,)),
+            profile=meta((Bw, cfg.d_profile), torch.float32)))
+        with torch.no_grad():
+            _, served = count_step(lambda p, b: model.score(p, b, cfg, lay),
+                                   (state.params, bulk), per_rank=True)
+        bulk_peak = served.temp_bytes + sum(x.numel() * x.element_size()
+                                            for x in tensors((state.params, bulk)))
+    return dict(state_bytes=state_bytes, temp_bytes=count.temp_bytes,
+                peak_bytes=state_bytes + count.temp_bytes, collective_bytes=count.collective_bytes,
+                collective_bytes_by_kind=dict(count.collective_bytes_by_kind),
+                flops=count.flops, bulk_whole_peak_bytes=bulk_peak, s=time.perf_counter() - t)
+
+
+def mesh_din_rank(mesh, dev, rank, shard_dir) -> dict:
+    """DIN on the mesh, this rank's part: its shards of the same draw as the
+    world of one's (`local_params` under DIN_RULES) and its block of each
+    batch. In float32, TF32 off, under `sync_checked` (no host sync but
+    gloo's own): `score` at serve_p99 and serve_bulk, `retrieval_scores`
+    (its quarter of the candidates, read from the tables' owners by
+    exchange) and one train step at train_batch, each timed (the host's
+    clock after a sync; every rank at once on the one card), the step's
+    max_memory_allocated after the peak stats are reset; held against the
+    world of one's (`mesh_din_ref`): the scores of their max, the loss, m
+    and v of each leaf's max, the table shards after the step (rows no id
+    read bit-equal to the draw, the rest within 2 lr, an Adam step's reach
+    on a gradient whose sign rounding turns). Then the same with TF32
+    matmuls, the control. No hand-written kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import din as conf
+    from repro_torch.configs.base import merged_rules
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.param import local_params, tree_map
+    from repro_torch.models.recsys import din as model
+    from repro_torch.train.train_step import init_train_state
+
+    t0 = time.perf_counter()
+    cfg, rules = conf.model_cfg(), merged_rules(conf.DIN_RULES)
+    ref = torch.load(os.path.join(shard_dir, f"din_mesh_{rank}.pt"), weights_only=False)
+    inputs = mesh_din_inputs()
+    lay = model.MeshLayout(cfg, mesh, rules)
+    rlay = model.MeshLayout(cfg, mesh, rules, n_candidates=MESH_DIN_CANDS)
+    if lay.specs != ref["specs"] or rlay.cand_axes != ("data", "model"):
+        raise AssertionError(f"DIN on the mesh: specs {lay.specs}, candidates {rlay.cand_axes}")
+    p0 = local_params(mesh_din_params(dev), lay.specs, mesh)
+    # the rows of this rank's table shards that no id of the whole train
+    # batch reads (both data ranks' gradients move a shard)
+    unread = {}
+    for name, keys in (("item_table", ("hist_items", "cand_item")),
+                       ("cat_table", ("hist_cats", "cand_cat"))):
+        R = p0[name].shape[0]
+        seen = torch.zeros(R * lay.n_model, dtype=torch.bool)
+        for k in keys:
+            seen[inputs["train_batch"][k].long().clamp(min=0).reshape(-1)] = True
+        unread[name] = (~seen[lay.m * R:(lay.m + 1) * R]).to(dev)
+    batches = {c: {k: v.to(dev) for k, v in (rlay if c == "retrieval_cand" else lay)
+                   .local_batch(b).items()} for c, b in inputs.items()}
+    del inputs
+    _empty_cache(dev)
+
+    def run(tf32: bool):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        LAUNCHES.clear()
+        walls, out = {}, {}
+        try:
+            with sync_checked(dev) if not tf32 else contextlib.nullcontext():
+                with torch.no_grad():
+                    for cell in ("serve_p99", "serve_bulk", "retrieval_cand"):
+                        fn = model.retrieval_scores if cell == "retrieval_cand" else model.score
+                        _sync(dev)
+                        t = time.perf_counter()
+                        out[cell] = fn(p0, batches[cell], cfg,
+                                       rlay if cell == "retrieval_cand" else lay)
+                        _sync(dev)
+                        walls[cell] = time.perf_counter() - t
+                state = init_train_state(tree_map(lambda p: p.clone(), p0))
+                step = mesh_din_step(lambda p, b: model.loss_fn(p, b, cfg, lay), mesh,
+                                     lay.specs)
+                _sync(dev)
+                dist.barrier()
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                t = time.perf_counter()
+                state, met = step(state, batches["train_batch"])
+                _sync(dev)
+                walls["train_batch"] = time.perf_counter() - t
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        rel = lambda a, b: float((a - b.to(dev)).abs().max() / b.abs().max())  # noqa: E731
+        res = dict(walls=walls, peak_allocated=peak, launches={k: v for k, v in LAUNCHES.items()
+                                                              if v},
+                   scores={c: rel(out[c], ref["scores"][c]) for c in out},
+                   loss=abs(float(met["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                   grad_norm=abs(float(met["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                   m=max(rel(v, ref["m"][k]) for k, v in state.opt_state["m"].items()),
+                   v=max(rel(v, ref["v"][k]) for k, v in state.opt_state["v"].items()),
+                   finite=all(bool(torch.isfinite(x).all()) for x in out.values()))
+        tables = {}
+        for name in ("item_table", "cat_table"):
+            p, want = state.params[name].detach(), ref["tables"][name].to(dev)
+            keep = unread[name]
+            tables[name] = dict(
+                unread_rows=int(keep.sum()),
+                unread_equal=bool(torch.equal(p[keep], p0[name][keep])),
+                read_max_abs=float((p[~keep] - want[~keep]).abs().max()))
+        res["tables"] = tables
+        del state, out
+        _empty_cache(dev)
+        return res
+
+    f32 = run(False)
+    control = run(True)
+    rows = {c: int(b["hist_items"].shape[0]) for c, b in batches.items() if c != "retrieval_cand"}
+    rows["retrieval_cand"] = int(batches["retrieval_cand"]["cand_items"].shape[0])
+    del p0, batches
+    _empty_cache(dev)
+    return dict(f32=f32, control=control, rows=rows, lr=ref["lr"], s=time.perf_counter() - t0)
 
 
 def _empty_cache(dev):
@@ -5944,7 +6502,90 @@ def check_mesh_decode(ranks, ref, reckoned) -> dict:
                 prompt=MESH_DECODE_PROMPT, steps=MESH_DECODE_STEPS)
 
 
-def sharded_paths(device):
+def check_mesh_din(ranks, ref, reckoned, parent_gb: float) -> dict:
+    """Hold and log DIN on the mesh, every rank: in float32 each cell's
+    scores within MESH_DIN_TOL, the loss within MESH_DIN_LOSS_TOL, m and v
+    within MESH_DIN_STATE_TOL, the table shards' read rows within
+    MESH_DIN_TABLE_TOL, the TF32 control above each; the table shards'
+    unread rows bit-equal to the draw; every score finite; no hand-written
+    kernel launched (the lookups are plain row gathers, as the reference's);
+    the reckoned peak beside max_memory_allocated; the reckoned peak of
+    serve_bulk whole on the four ranks beside the card's memory (the cut's
+    reason, PERF.md section 4)."""
+    from repro_torch.configs import din as conf
+
+    cfg = conf.model_cfg()
+    din = [r["din_mesh"] for r in ranks]
+    cells = list(din[0]["f32"]["scores"])
+    score = max(max(x["f32"]["scores"].values()) for x in din)
+    # each cell's control must land above: the smallest over cells and ranks
+    score_c = min(x["control"]["scores"][c] for x in din for c in cells)
+    loss = max(x["f32"]["loss"] for x in din)
+    loss_c = min(x["control"]["loss"] for x in din)
+    state = max(max(x["f32"]["m"], x["f32"]["v"]) for x in din)
+    state_c = min(max(x["control"]["m"], x["control"]["v"]) for x in din)
+    tab = {n: max(x["f32"]["tables"][n]["read_max_abs"] for x in din)
+           for n in ("item_table", "cat_table")}
+    tab_c = min(t["read_max_abs"] for x in din for t in x["control"]["tables"].values())
+    log(f"[sharded] DIN on a mesh: model_cfg() (tables {cfg.n_items:,} and {cfg.n_cats:,} x "
+        f"{cfg.embed_dim}), mesh (data, model) {MESH_LM_SHAPE}, DIN_RULES (the tables' rows "
+        f"and the MLPs' columns that divide over \"model\"); rows a rank {din[0]['rows']}; "
+        f"float32, TF32 off, against the world of one (loss {ref['loss']:.6f}, grad norm "
+        f"{ref['grad_norm']:.6f}; walls " + " ".join(f"{c} {w:.3f}" for c, w in
+                                                     ref["walls"].items()) +
+        " s): scores of their max by rank " +
+        "; ".join(" ".join(f"{c} {e:.3g}" for c, e in x["f32"]["scores"].items()) for x in din) +
+        f" (tol {MESH_DIN_TOL}; TF32 control {score_c:.3g} at least); loss by rank " +
+        " ".join(f"{x['f32']['loss']:.3g}" for x in din) +
+        f" (tol {MESH_DIN_LOSS_TOL}; control {loss_c:.3g}); m, v of "
+        "each leaf's max by rank " + " ".join(f"{x['f32']['m']:.3g}/{x['f32']['v']:.3g}"
+                                              for x in din) +
+        f" (tol {MESH_DIN_STATE_TOL}; control {state_c:.3g}); table shards after the step: "
+        "unread rows bit-equal " + str(all(t["unread_equal"] for x in din
+                                           for t in x["f32"]["tables"].values())) +
+        f", read rows within {tab} (tol {MESH_DIN_TABLE_TOL}; control {tab_c:.3g})")
+    if not (score <= MESH_DIN_TOL < score_c and loss <= MESH_DIN_LOSS_TOL < loss_c and
+            state <= MESH_DIN_STATE_TOL < state_c and
+            max(tab.values()) <= MESH_DIN_TABLE_TOL < tab_c):
+        raise AssertionError(f"DIN on a mesh against the world of one: "
+                             f"{[(x['f32'], x['control']) for x in din]}")
+    for x in din:
+        for run in (x["f32"], x["control"]):
+            if run["launches"] or not run["finite"]:
+                raise AssertionError(f"DIN on a mesh launched {run['launches']} or gave a "
+                                     f"score that is not finite")
+        for t in x["f32"]["tables"].values():
+            if not t["unread_equal"]:
+                raise AssertionError(f"DIN on a mesh: table shards off {x['f32']['tables']}")
+    peaks = [x["f32"]["peak_allocated"] for x in din]
+    log(f"[sharded] DIN on a mesh, walls by rank, every rank at once on the one card, gloo "
+        f"through the host (float32, the first calls, under set_sync_debug_mode(\"error\") but "
+        f"inside gloo's collectives) " +
+        "; ".join(" ".join(f"{c} {w:.3f}" for c, w in x["f32"]["walls"].items()) for x in din) +
+        " s; (TF32, the second calls) " +
+        "; ".join(" ".join(f"{c} {w:.3f}" for c, w in x["control"]["walls"].items())
+                  for x in din) + " s; the train step's peak allocated by rank " + " ".join(f"{p / 1e9:.3f}" for p in peaks)
+        + f" GB beside the dry run's reckoning {reckoned['peak_bytes'] / 1e9:.3f} GB (state "
+        f"{reckoned['state_bytes'] / 1e9:.3f} + temporaries {reckoned['temp_bytes'] / 1e9:.3f}; "
+        f"{reckoned['collective_bytes'] / 1e9:.3f} GB of collectives a step "
+        f"{reckoned['collective_bytes_by_kind']}); rank path " +
+        " ".join(f"{x['s']:.1f}" for x in din) + " s")
+    total = (torch.cuda.get_device_properties(0).total_memory / 1e9
+             if torch.cuda.is_available() else 0.0)
+    bulk = reckoned["bulk_whole_peak_bytes"] / 1e9
+    log(f"[sharded] DIN on a mesh, serve_bulk whole ({MESH_DIN_BULK_WHOLE:,} rows): the dry "
+        f"run's reckoned peak {bulk:.3f} GB a rank, {SHARD_WORLD * bulk:.3f} GB for the "
+        f"{SHARD_WORLD} ranks, with this process's reserved {parent_gb:.2f} GB "
+        f"{SHARD_WORLD * bulk + parent_gb:.3f} GB, before {SHARD_WORLD + 1} CUDA contexts and "
+        f"the allocator's slack, against the card's {total:.3f} GB: run at "
+        f"{MESH_DIN_BATCH['serve_bulk']:,}")
+    return dict(ranks=din, ref=ref, reckoned=reckoned, tol=MESH_DIN_TOL,
+                loss_tol=MESH_DIN_LOSS_TOL, state_tol=MESH_DIN_STATE_TOL,
+                table_tol=MESH_DIN_TABLE_TOL, batch=MESH_DIN_BATCH, candidates=MESH_DIN_CANDS,
+                shape=MESH_LM_SHAPE)
+
+
+def sharded_paths(device, grouting_handoff: dict):
     """Phase 13: the sharded paths, as four gloo ranks on the one card.
 
     First, in this process: the cut ogb_products graph for PNA
@@ -5967,11 +6608,15 @@ def sharded_paths(device):
     process also runs the mesh LM's world of one (`mesh_lm_ref`) and the
     dry run's reckoning of its timed step (`mesh_lm_reckoned`), and the
     decode step's world of one (`mesh_decode_ref`: the prefill that fills
-    the cache, the steps) and its reckoning (`mesh_decode_reckoned`); the
-    ranks' readings are held by `check_mesh_lm` and `check_mesh_decode`.
-    Returns (figures, the flash launches summed: the ranks' expert-parallel
-    prefill's and the mesh LM's timed step's, and the decode's prefill in
-    this process, by wrapper)."""
+    the cache, the steps) and its reckoning (`mesh_decode_reckoned`), and
+    DIN's world of one (`mesh_din_ref`) and its reckoning
+    (`mesh_din_reckoned`); the ranks' readings are held by
+    `check_mesh_lm`, `check_mesh_decode` and `check_mesh_din`, and their
+    grouting runs, served from phase 11's graph (`grouting_handoff`), by
+    `check_grouting_mesh`. Returns (figures, by wrapper the flash launches
+    summed: the ranks' expert-parallel prefill's and the mesh LM's timed
+    step's, and the decode's prefill in this process; and the frontier
+    launches of the ranks' grouting runs, summed over the ranks)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -5990,15 +6635,20 @@ def sharded_paths(device):
         lm_ref = mesh_lm_ref(device, shard_dir)
         _empty_cache(device)
         decode_ref = mesh_decode_ref(device, shard_dir)
+        _empty_cache(device)
+        din_ref = mesh_din_ref(device, shard_dir)
     lm_reckoned = mesh_lm_reckoned()
     decode_reckoned = mesh_decode_reckoned()
+    din_reckoned = mesh_din_reckoned()
     _empty_cache(device)
     parent_gb = torch.cuda.memory_reserved(device) / 1e9 if device.type == "cuda" else 0.0
     setup_s = time.perf_counter() - t0
     t = time.perf_counter()
-    ranks = spawn_ranks(sharded_rank, SHARD_WORLD, (shard_dir, device.type), SHARD_TIMEOUT_S)
+    ranks = spawn_ranks(sharded_rank, SHARD_WORLD,
+                        (shard_dir, device.type, grouting_handoff["dir"]), SHARD_TIMEOUT_S)
     ranks_s = time.perf_counter() - t
     shutil.rmtree(shard_dir, ignore_errors=True)
+    shutil.rmtree(grouting_handoff["dir"], ignore_errors=True)
 
     r0 = ranks[0]
     log(f"[sharded] {SHARD_WORLD} ranks, gloo on {r0['route']['tensors']} tensors: "
@@ -6007,6 +6657,8 @@ def sharded_paths(device):
         f"memory; ranks up in {max(r['start_s'] for r in ranks):.1f} s")
     lm_mesh = check_mesh_lm(ranks, lm_ref, lm_reckoned)
     decode_mesh = check_mesh_decode(ranks, decode_ref, decode_reckoned)
+    din_mesh = check_mesh_din(ranks, din_ref, din_reckoned, parent_gb)
+    grouting_mesh, frontier_launches = check_grouting_mesh(ranks, grouting_handoff)
     log(f"[sharded] world of one over {one['backend']}: expert-parallel layer " +
         "; ".join(f"{c['tokens_a_shard']} tokens ({c['regime']}, capacity {c['capacity']}) worst "
                   f"{c['worst']:.3g} ({c['worst_leaf']})" for c in one["moe_layer"]) +
@@ -6105,6 +6757,7 @@ def sharded_paths(device):
     n_flash = sum(p["flash_launches"] for p in pf)
     figures = dict(
         route=r0["route"], world_of_one=one, lm_mesh=lm_mesh, decode_mesh=decode_mesh,
+        din_mesh=din_mesh, grouting_mesh=grouting_mesh,
         moe_layer=[r["moe_layer"] for r in ranks],
         prefill=dict(rel_l2=errs, tol=EP_PREFILL_TOL, input_moved=moved,
                      flash_launches=[p["flash_launches"] for p in pf],
@@ -6124,7 +6777,7 @@ def sharded_paths(device):
     launches = {"flash_attention": n_flash + sum(r["lm_mesh"]["launches"].get(
         "flash_attention", 0) for r in ranks) + decode_ref["launches"].get("flash_attention", 0),
         "flash_attention_bwd": sum(r["lm_mesh"]["launches"].get("flash_attention_bwd", 0)
-                                   for r in ranks)}
+                                   for r in ranks), **frontier_launches}
     return figures, launches
 
 
@@ -6225,14 +6878,15 @@ def main() -> int:
     phase_done("GNN and DIN card vs CPU")
     zoo = zoo_training(device)
     phase_done("zoo training")
-    grouting, grouting_launches = grouting_serving(device)
+    grouting, grouting_launches, grouting_handoff = grouting_serving(device)
     for k, v in grouting_launches.items():
         kernels[k]["launches"] += v
     phase_done("grouting")
     planning = planning_and_examples(device, lm, train, zoo)
     phase_done("planning and examples")
-    sharded, sharded_launches = sharded_paths(device)
-    # and the expert-parallel prefill's and the mesh LM step's, summed over the four ranks
+    sharded, sharded_launches = sharded_paths(device, grouting_handoff)
+    # and the expert-parallel prefill's, the mesh LM step's and the grouting
+    # mesh's frontier launches, summed over the four ranks
     for k, v in sharded_launches.items():
         kernels[k]["launches"] += v
     phase_done("sharded paths")

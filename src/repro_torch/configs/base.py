@@ -13,8 +13,9 @@ eagerly on the meta tensors at full depth (`analysis/roofline.py`).
 Given a `ProcessMesh` (the dry run builds one over a `fake` process group
 of the mesh's size), the sharded cells' steps run per rank, with rank 0's
 own arguments: the LM's training step, prefill and decode step on the mesh
-(`models/transformer.py` `MeshLayout`), and ogb_products' full-graph step
-(`models/gnn/distributed.py`); `meta["per_rank"]` says so. Given a mesh
+(`models/transformer.py` `MeshLayout`), ogb_products' full-graph step
+(`models/gnn/distributed.py`) and DIN's four cells (`models/recsys/din.py`
+`MeshLayout`, in `configs/din.py`); `meta["per_rank"]` says so. Given a mesh
 that is only a shape (`launch.mesh.MeshShape`), every step runs as on one
 device.
 

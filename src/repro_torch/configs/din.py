@@ -5,17 +5,23 @@ Shapes: train_batch (B=65,536), serve_p99 (B=512), serve_bulk (B=262,144),
 retrieval_cand (batch=1 x 1,000,000 candidates, batched-dot scoring).
 
 The embedding tables are the decoupled storage tier: vocab rows sharded over
-the "storage" -> model axis, as gRouting's adjacency rows are."""
+the "storage" -> model axis, as gRouting's adjacency rows are.
+
+Given a `ProcessMesh`, the dry run counts rank 0's own step under
+`DIN_RULES` (`models/recsys/din.py` `MeshLayout`: its shards of the tables
+and MLPs, its block of the batch; `meta["per_rank"]`); given a mesh that is
+only a shape, the step of one device."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import (
-    ArchDef, Cell, DryRunSpec, abstract_train_state, merged_rules, meta_tensor, train_step_fn,
+    ArchDef, Cell, DryRunSpec, abstract_train_state, merged_rules, meta_tensor, per_rank_mesh,
+    train_step_fn,
 )
 from repro_torch.distributed.mesh_utils import resolve_pspec, set_mesh_rules
-from repro_torch.models.param import abstract_params, param_count, param_pspecs
+from repro_torch.models.param import abstract_params, local_params, param_count, param_pspecs
 from repro_torch.models.recsys import din as model
 
 DIN_RULES = {"batch": ("pod", "data"), "storage": "model", "cand": ("data", "model")}
@@ -54,10 +60,6 @@ def _batch_abstract(shape: str, cfg: model.DINConfig, lr):
             "cand_items": meta_tensor((nc,)),
             "cand_cats": meta_tensor((nc,)),
         }
-        ax = {
-            "hist_items": (None, None), "hist_cats": (None, None),
-            "profile": (None, None), "cand_items": ("cand",), "cand_cats": ("cand",),
-        }
     else:
         B = d["batch"]
         b = {
@@ -68,13 +70,9 @@ def _batch_abstract(shape: str, cfg: model.DINConfig, lr):
             "profile": meta_tensor((B, cfg.d_profile), f32),
             "label": meta_tensor((B,)),
         }
-        ax = {
-            "hist_items": ("batch", None), "hist_cats": ("batch", None),
-            "cand_item": ("batch",), "cand_cat": ("batch",),
-            "profile": ("batch", None), "label": ("batch",),
-        }
         if shape != "train_batch":
-            b.pop("label"); ax.pop("label")
+            b.pop("label")
+    ax = model.batch_axes(b)
     return b, {k: resolve_pspec(ax[k], v.shape, lr) for k, v in b.items()}
 
 
@@ -84,6 +82,7 @@ def build_dryrun(shape: str, mesh) -> DryRunSpec:
     cfg = model_cfg()
     cell = ARCH.cell(shape)
     rules = merged_rules(cell.rules)
+    sharded = per_rank_mesh(mesh)
     with set_mesh_rules(mesh, rules) as lr:
         specs = model.param_specs(cfg)
         ap = abstract_params(specs)
@@ -102,26 +101,34 @@ def build_dryrun(shape: str, mesh) -> DryRunSpec:
         per_ex = 2 * (cfg.seq_len * attn_f + mlp_f)
         mult = 3.0 if cell.kind == "train" else 1.0
 
+        # on a ProcessMesh: rank 0's shards and its block of the batch
+        lay = model.MeshLayout(cfg, mesh, rules, d.get("n_candidates")) if sharded else None
+        on_rank = (lambda tree: local_params(tree, lay.specs, mesh)) if sharded else None
+        rows = lay.local_batch(batch_abs) if sharded else batch_abs
+
         if cell.kind == "train":
-            state, layout, state_sh = abstract_train_state(ap, pspecs)
-            fn = train_step_fn(lambda p, bb: model.loss_fn(p, bb, cfg),
-                               AdamWConfig(weight_decay=0.0))
+            state, layout, state_sh = abstract_train_state(ap, pspecs, local=on_rank)
+            fn = train_step_fn(lambda p, bb: model.loss_fn(p, bb, cfg, lay),
+                               AdamWConfig(weight_decay=0.0), mesh=mesh if sharded else None,
+                               specs=lay.specs if sharded else None)
             return DryRunSpec(
-                fn=fn, args=(state, batch_abs), in_specs=(state_sh, batch_sh),
+                fn=fn, args=(state, rows), in_specs=(state_sh, batch_sh),
                 state=(layout, batch_abs), donate=(0,), rules=rules,
                 meta={"params": n_params, "tokens": items,
-                      "model_flops": mult * per_ex * items, "kind": "train"})
+                      "model_flops": mult * per_ex * items, "kind": "train",
+                      "per_rank": sharded})
 
         if cell.kind == "retrieval":
-            fn = lambda p, b: model.retrieval_scores(p, b, cfg)
+            fn = lambda p, b: model.retrieval_scores(p, b, cfg, lay)
             # retrieval approximates with the candidate-independent user vec
             per_ex = 2 * mlp_f
         else:
-            fn = lambda p, b: model.score(p, b, cfg)
+            fn = lambda p, b: model.score(p, b, cfg, lay)
         return DryRunSpec(
-            fn=fn, args=(ap, batch_abs), in_specs=(pspecs, batch_sh), rules=rules,
+            fn=fn, args=(on_rank(ap) if sharded else ap, rows), in_specs=(pspecs, batch_sh),
+            state=(ap, batch_abs), rules=rules,
             meta={"params": n_params, "tokens": items,
-                  "model_flops": per_ex * items, "kind": cell.kind})
+                  "model_flops": per_ex * items, "kind": cell.kind, "per_rank": sharded})
 
 
 ARCH = ArchDef(

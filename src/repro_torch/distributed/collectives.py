@@ -22,6 +22,10 @@ every rank of it (a loss read on every rank, a psum's result). So
   - `all_gather` (tiled along a dim): backward a reduce-scatter by sum,
     built from `all_to_all` and a sum in rank order, which every backend
     takes;
+  - `gather_invariant` (tiled along a dim): the gathered value is the
+    same on every rank, so its cotangent is too, and each rank's backward
+    is its own block of it (an activation split by column, gathered whole
+    for a layer that every rank runs alike);
   - `all_to_all` (tiled along dim 0): backward the reverse exchange, which
     for equal blocks is the same exchange;
   - `pmax`: the max over the group, with no gradient (the vocab-parallel
@@ -118,6 +122,20 @@ class _AllGather(torch.autograd.Function):
         return _all_to_all(blocks, ctx.group).sum(0), None, None
 
 
+class _GatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.size, ctx.rank = dim, x.shape[dim], dist.get_rank(group)
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(group_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -155,6 +173,13 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's shards concatenated along `dim` in rank order
     (`jax.lax.all_gather(..., tiled=True)`)."""
     return _AllGather.apply(x, group, dim)
+
+
+def gather_invariant(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The group's shards concatenated along `dim` in rank order, as one
+    value the same on every rank: backward this rank's block of the
+    cotangent, which every rank holds whole."""
+    return _GatherInvariant.apply(x, group, dim % x.dim())
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

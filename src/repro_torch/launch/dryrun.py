@@ -14,8 +14,8 @@ built on every rank, as `ProcessMesh` builds them, for 0.01 s at 512.
   - Per-device state bytes (parameters, optimizer state, KV cache, batch)
     are exact, from the sharding specs (`distributed/mesh_utils.py`).
   - The sharded steps (an LM's training step, prefill and decode step,
-    ogb_products' full-graph step; `meta["per_rank"]`) run as rank 0 runs
-    them, on its shards and over its groups: their flops and bytes are rank 0's own,
+    ogb_products' full-graph step, DIN's four cells; `meta["per_rank"]`)
+    run as rank 0 runs them, on its shards and over its groups: their flops and bytes are rank 0's own,
     with its collectives' bytes by kind, split within and between nodes,
     and its temporaries. `temp_bytes` is the peak of the live storage the
     step allocates: each output's storage is added when it appears and

@@ -72,9 +72,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Serve the bursts; returns rank 0's totals (the other ranks' are
-    empty): arrivals, served, dropped, the backlog left, and per burst the
-    touched rows and missed probes of the whole mesh."""
+    """Serve the bursts; returns this rank's `serve_bursts` figures (rank
+    0's hold the admission totals: arrivals, served, dropped, the backlog
+    left), per burst the touched rows and missed probes of the whole mesh."""
     args = parse_args(argv)
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
@@ -114,26 +114,30 @@ def serve(args, mesh, dev) -> dict:
         emb = build_graph_embedding(li.dist_to_lm, li.landmarks, EMBED, device=dev)
         nodes = hotspot_workload(g, r=1, n_hotspots=6, queries_per_hotspot=arrivals,
                                  seed=1).query_nodes
-    return serve_bursts(mesh, dev, cfg, tier, emb, nodes, bursts=args.bursts,
+    storage = make_serving_storage(tier, mesh.axis_index("model"), dev)
+    return serve_bursts(mesh, dev, cfg, storage, emb, nodes, bursts=args.bursts,
                         backlog=args.backlog, say=say)
 
 
-def serve_bursts(mesh, dev, cfg: GServeConfig, tier, emb, nodes, *, bursts: int,
+def serve_bursts(mesh, dev, cfg: GServeConfig, storage: dict, emb, nodes, *, bursts: int,
                  backlog: int, say=print, on_step=None, record: bool = False) -> dict:
     """The burst loop: each burst brings 1.5x the processors' slots of
     `nodes` (in order, wrapping around), admitted by one embed router on
     rank 0 on the coordinates of `emb`, its buffer broadcast; after
     `bursts` bursts the backlog drains. `emb` and `nodes` are read on rank 0
-    only; every rank serves its row of `tier` (a `StorageTier` of
-    `cfg.n_storage_shards` shards) through the distributed step.
+    only; every rank serves its row of the buffer from `storage`, its own
+    shard of a tier of `cfg.n_storage_shards` shards on `dev` (as
+    `core.storage.make_serving_storage` gives it), through the distributed
+    step.
 
-    Returns rank 0's totals (the other ranks' are empty): arrivals, served,
-    dropped, the backlog left, and per burst the touched rows and missed
-    probes of the whole mesh, the served queries and the wall seconds (from
-    admission to the stats read back). With `record`, also rank 0's own
+    Returns this rank's figures: per burst the touched rows and missed
+    probes of the whole mesh and the wall seconds of this rank (from
+    admission to the stats read back); with `record`, also its own
     (queries, counts, stats) of each burst as numpy ("record") and its
-    final cache ("cache"). `on_step(b, fn)`, when given, runs burst b's
-    step `fn` (a profile, say)."""
+    final cache ("cache"). Rank 0's also hold the admission totals:
+    arrivals, served, dropped, the backlog left and the queries placed a
+    burst ("served_per_burst"). `on_step(b, fn)`, when given, runs burst
+    b's step `fn` (a profile, say)."""
     lead = mesh.rank == 0
     P, qpp = n_processors(mesh), cfg.queries_per_proc
     arrivals = P * qpp + P * qpp // 2  # 1.5x oversubscription per burst
@@ -151,13 +155,14 @@ def serve_bursts(mesh, dev, cfg: GServeConfig, tier, emb, nodes, *, bursts: int,
         ring = init_backlog()
     dist.broadcast(coords, src=0)
 
-    inputs = dict(make_serving_storage(tier, mesh.axis_index("model"), dev), coords=coords,
+    inputs = dict(storage, coords=coords,
                   ema=torch.zeros((P, cfg.embed_dim), dtype=torch.float32, device=dev),
                   cache=make_processor_caches(mesh, cfg, dev))
     say(f"{'burst':>5s} {'arrive':>7s} {'served':>7s} {'backlog':>8s} {'dropped':>8s} "
         f"{'touched':>8s} {'misses':>8s} {'hit%':>6s}")
-    out = dict(arrivals=0, served=0, dropped=0, backlog=0, touched=[], misses=[],
-               served_per_burst=[], burst_s=[])
+    out = dict(touched=[], misses=[], burst_s=[])
+    if lead:
+        out.update(arrivals=0, served=0, dropped=0, backlog=0, served_per_burst=[])
     if record:
         out["record"] = []
     no_fresh = np.full(arrivals, -1, np.int32)
@@ -191,31 +196,30 @@ def serve_bursts(mesh, dev, cfg: GServeConfig, tier, emb, nodes, *, bursts: int,
         inputs["cache"], inputs["ema"] = cache, ema
         touched, missed, _reads = stats.tolist()  # the whole mesh's, this burst
         wall = time.perf_counter() - t0
+        if record:
+            # copies: on the CPU .numpy() would share the reused message buffer
+            out["record"].append(tuple(x.cpu().numpy().copy()
+                                       for x in (ins["queries"], counts, stats)))
+        out["touched"].append(int(touched))
+        out["misses"].append(int(missed))
+        out["burst_s"].append(wall)
         if lead:
-            if record:
-                # copies: on the CPU .numpy() would share the reused message buffer
-                out["record"].append(tuple(x.cpu().numpy().copy()
-                                           for x in (ins["queries"], counts, stats)))
             served, n_dropped = int(adm.placed.sum()), int(adm.n_dropped)
             out["arrivals"] += 0 if draining else arrivals
             out["served"] += served
             out["dropped"] += n_dropped
-            out["touched"].append(int(touched))
-            out["misses"].append(int(missed))
             out["served_per_burst"].append(served)
-            out["burst_s"].append(wall)
             hit = 100 * (1 - missed / max(touched, 1))
             say(f"{b:5d} {0 if draining else arrivals:7d} {served:7d} {int(adm.depth):8d} "
                 f"{n_dropped:8d} {int(touched):8d} {int(missed):8d} {hit:6.1f}")
         b += 1
+    if record:
+        out["cache"] = inputs["cache"]
     if lead:
-        if record:
-            out["cache"] = inputs["cache"]
         out["backlog"] = int(ring.depth())
         say(f"\nserved {out['served']}, dropped {out['dropped']} (drop-oldest admission, "
             f"backlog {backlog})")
-        return out
-    return {}
+    return out
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The cases of the port's sharded-path tests (`test_torch_moe_distributed.py`,
 `test_torch_dist_gnn.py`, `test_torch_grad_compression.py`,
 `test_torch_lm_mesh.py`, `test_torch_checkpoint_mesh.py`,
-`test_torch_lm_decode_mesh.py`), shared by the
+`test_torch_lm_decode_mesh.py`, `test_torch_din_mesh.py`), shared by the
 reference runner (`_sharded_ref.py`, JAX on 4 host devices) and the port's
 workers (`_torch_sharded.py`, 4 gloo ranks): numpy and plain values only.
 
@@ -118,6 +118,83 @@ DECODE_CASES = {
 }
 # against the reference's own sharded decode, jitted on (2, 2)
 DECODE_REF_SHARDED = ("qwen3-4b/2x2", "gemma2-27b/long-2x2")
+
+
+# --- DIN on a mesh: the smoke config under DIN_RULES ----------------------
+# name -> (mesh shape, mesh axes, the smoke config's fields changed). The
+# smoke widths all split 4 ways; "1x4-whole" has widths that do not (as
+# 200 and 40 do not split 16 ways at full size): attn 80 splits, 42 stays
+# whole, the main MLP's 30 stays whole and 12 splits.
+DIN_CASES = {
+    "2x2": ((2, 2), AXES, {}),
+    "1x4": ((1, 4), AXES, {}),
+    "4x1": ((4, 1), AXES, {}),
+    "pod2x1x2": ((2, 1, 2), POD, {}),
+    "1x4-whole": ((1, 4), AXES, {"attn_hidden": (80, 42), "mlp_hidden": (30, 12)}),
+}
+DIN_B = 16  # rows of the batch: 4, 8 or 16 a rank
+# candidates of the retrieval batch: 64 split over ("data", "model") (over
+# "model" where "data" is 1); 66 falls back to ("data",) where "data" is 2
+DIN_CANDS = (64, 66)
+DIN_REF_SHARDED = "2x2"  # against the reference's own sharded step and retrieval
+
+
+def din_variant(name: str) -> str:
+    """The unsharded DIN a case is held to: its changed fields."""
+    over = DIN_CASES[name][2]
+    return "din" + "".join(f",{k}={v}" for k, v in sorted(over.items()))
+
+
+def din_params(shapes: dict) -> dict:
+    """{leaf: array} of a DIN config's {leaf: shape}."""
+    return draw_tree(shapes, 3)
+
+
+def din_edge_ids(n: int) -> np.ndarray:
+    """Ids at the edges of the blocks of n rows on 1, 2 and 4 model ranks:
+    each block's first and last row."""
+    return np.unique([i for k in (1, 2, 4) for b in range(k)
+                      for i in (b * n // k, (b + 1) * n // k - 1)]).astype(np.int32)
+
+
+def din_batches(seq_len: int, n_items: int, n_cats: int, d_profile: int):
+    """(a batch of DIN_B rows with labels, {n: a retrieval batch of n
+    candidates}): ids drawn over the tables, the blocks' edge ids among
+    them, histories padded with -1 (and a category behind a padded item),
+    one candidate item id -1 (its category read, its row zero)."""
+    rng = np.random.default_rng(17)
+    B, L = DIN_B, seq_len
+    hist = rng.integers(0, n_items, (B, L)).astype(np.int32)
+    cats = rng.integers(0, n_cats, (B, L)).astype(np.int32)
+    edges_i, edges_c = din_edge_ids(n_items), din_edge_ids(n_cats)
+    hist[0, :edges_i.size] = edges_i
+    cats[1, :edges_c.size] = edges_c
+    lens = rng.integers(L // 4, L + 1, B)
+    lens[0] = L
+    pad = np.arange(L)[None, :] >= lens[:, None]
+    hist[pad] = -1
+    cats[pad] = rng.integers(0, n_cats, int(pad.sum()))
+    batch = {"hist_items": hist, "hist_cats": cats,
+             "cand_item": rng.integers(0, n_items, B).astype(np.int32),
+             "cand_cat": rng.integers(0, n_cats, B).astype(np.int32),
+             "profile": rng.standard_normal((B, d_profile)).astype(np.float32),
+             "label": rng.integers(0, 2, B).astype(np.int32)}
+    batch["cand_item"][:4] = edges_i[-4:]
+    batch["cand_cat"][:4] = edges_c[-4:]
+    retrieval = {}
+    for n in DIN_CANDS:
+        r = np.random.default_rng([19, n])
+        h = r.integers(0, n_items, (1, L)).astype(np.int32)
+        h[0, -3:] = -1
+        items = r.integers(0, n_items, n).astype(np.int32)
+        items[:edges_i.size] = edges_i
+        items[-1] = -1
+        retrieval[n] = {"hist_items": h,
+                        "hist_cats": r.integers(0, n_cats, (1, L)).astype(np.int32),
+                        "profile": r.standard_normal((1, d_profile)).astype(np.float32),
+                        "cand_items": items,
+                        "cand_cats": r.integers(0, n_cats, n).astype(np.int32)}
+    return batch, retrieval
 
 
 def decode_variant(name: str) -> str:

@@ -19,7 +19,11 @@ prefill's last logits), "decode" (`serve_step` jitted on a (2, 2) mesh
 under `LM_DECODE_RULES` or `LM_LONG_DECODE_RULES`, bound as its dry run
 binds it, for each case of `C.DECODE_REF_SHARDED`: each device's shards of
 the logits and the cache at each step), "decode-unsharded" (the unsharded
-`serve_step` of every `C.decode_variant`).
+`serve_step` of every `C.decode_variant`), "din" (DIN's unsharded
+`score`, loss and gradients, one train step and `retrieval_scores` of every
+`C.din_variant`; then its training step and `retrieval_scores` jitted on a
+(2, 2) mesh under `DIN_RULES`, bound as its dry run binds them: each
+device's shards after the step, and of the scores).
 """
 
 from __future__ import annotations
@@ -331,6 +335,96 @@ def decode(out: dict) -> None:
         out[f"{name}/spec/k"] = np.asarray(str(ksp["layers"][0]["k"]))
 
 
+def _din_inputs(name: str):
+    """(the reference's config, parameters, batch and retrieval batches) of
+    DIN case `name`."""
+    import dataclasses
+
+    from repro.configs import din as jconf
+    from repro.models.recsys import din as JD
+
+    cfg = dataclasses.replace(jconf.smoke_cfg(), **C.DIN_CASES[name][2])
+    shapes = {k: s.shape for k, s in JD.param_specs(cfg).items()}
+    params = {k: jnp.asarray(v) for k, v in C.din_params(shapes).items()}
+    batch, retrieval = C.din_batches(cfg.seq_len, cfg.n_items, cfg.n_cats, cfg.d_profile)
+    return cfg, params, batch, retrieval
+
+
+def din(out: dict) -> None:
+    from repro.configs.base import bind_rules, merged_rules, named
+    from repro.configs.din import DIN_RULES
+    from repro.distributed.mesh_utils import resolve_pspec, set_mesh_rules
+    from repro.models.param import param_pspecs
+    from repro.models.recsys import din as JD
+    from repro.optim.adamw import AdamWConfig, adamw_update, opt_state_pspecs
+    from repro.train.train_step import TrainState, init_train_state, make_train_step
+
+    opt = AdamWConfig(weight_decay=0.0)
+    for variant in sorted({C.din_variant(n) for n in C.DIN_CASES}):
+        name = next(n for n in C.DIN_CASES if C.din_variant(n) == variant)
+        cfg, params, batch, retrieval = _din_inputs(name)
+        loss_of = lambda p, b: JD.loss_fn(p, b, cfg)  # noqa: E731
+        out[f"{variant}/score"] = np.asarray(jax.jit(lambda p, b: JD.score(p, b, cfg))(
+            params, batch))
+        (loss, _), grads = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(params, batch)
+        out[f"{variant}/loss"] = np.asarray(loss)
+        out.update({f"{variant}/grad/{k}": np.asarray(v) for k, v in grads.items()})
+        step = make_train_step(loss_of, opt, warmup=0, total_steps=10, donate=False)
+        state, m = step(init_train_state(params), batch)
+        out[f"{variant}/step/loss"] = np.asarray(m["loss"])
+        out[f"{variant}/step/grad_norm"] = np.asarray(m["grad_norm"])
+        for tag, tree in (("p", state.params), ("m", state.opt_state["m"]),
+                          ("v", state.opt_state["v"])):
+            out.update({f"{variant}/{tag}/{k}": np.asarray(v) for k, v in tree.items()})
+        for n, rb in retrieval.items():
+            out[f"{variant}/retrieval/{n}"] = np.asarray(jax.jit(
+                lambda p, b: JD.retrieval_scores(p, b, cfg))(params, rb))
+
+    # the training step and retrieval as the reference's dry run binds them
+    name = C.DIN_REF_SHARDED
+    shape, axes, _ = C.DIN_CASES[name]
+    cfg, params, batch, retrieval = _din_inputs(name)
+    mesh, rules = mesh_of(shape, axes), merged_rules(DIN_RULES)
+    ax = {"hist_items": ("batch", None), "hist_cats": ("batch", None), "cand_item": ("batch",),
+          "cand_cat": ("batch",), "profile": ("batch", None), "label": ("batch",),
+          "cand_items": ("cand",), "cand_cats": ("cand",)}
+    with set_mesh_rules(mesh, rules) as lr:
+        pspecs = param_pspecs(JD.param_specs(cfg), lr)
+        bsh = {k: resolve_pspec(ax[k], v.shape, lr) for k, v in batch.items()}
+        rsh = {n: {k: resolve_pspec(ax.get(k, (None, None)), v.shape, lr)
+                   for k, v in rb.items()} for n, rb in retrieval.items()}
+    state_sh = TrainState(params=pspecs, opt_state=opt_state_pspecs(pspecs), step=P())
+
+    def train_step(st, b):  # the dry run's: one step at the base rate
+        (loss, metrics), grads = jax.value_and_grad(
+            lambda p, bb: JD.loss_fn(p, bb, cfg), has_aux=True)(st.params, b)
+        new_p, new_o, om = adamw_update(grads, st.opt_state, st.params, opt)
+        return TrainState(new_p, new_o, st.step + 1), dict(metrics, loss=loss, **om)
+
+    step = jax.jit(bind_rules(train_step, mesh, rules),
+                   in_shardings=(named(mesh, state_sh), named(mesh, bsh)),
+                   out_shardings=(named(mesh, state_sh), None))
+    state, m = step(jax.device_put(init_train_state(params), named(mesh, state_sh)),
+                    jax.device_put(batch, named(mesh, bsh)))
+    out["sharded/loss"], out["sharded/grad_norm"] = np.asarray(m["loss"]), \
+        np.asarray(m["grad_norm"])
+    devices = list(mesh.devices.flat)
+    for tag, tree in (("p", state.params), ("m", state.opt_state["m"]),
+                      ("v", state.opt_state["v"])):
+        for k, a in tree.items():
+            for sh in a.addressable_shards:
+                out[f"sharded/{tag}/{k}/{devices.index(sh.device)}"] = np.asarray(sh.data)
+    for n, rb in retrieval.items():
+        fn = jax.jit(bind_rules(lambda p, b: JD.retrieval_scores(p, b, cfg), mesh, rules),
+                     in_shardings=(named(mesh, pspecs), named(mesh, rsh[n])),
+                     out_shardings=named(mesh, rsh[n]["cand_items"]))
+        scores = fn(jax.device_put(params, named(mesh, pspecs)),
+                    jax.device_put(rb, named(mesh, rsh[n])))
+        for sh in scores.addressable_shards:
+            out[f"sharded/retrieval/{n}/{devices.index(sh.device)}"] = np.asarray(sh.data)
+        out[f"sharded/retrieval/{n}/spec"] = np.asarray(str(rsh[n]["cand_items"]))
+
+
 def main(what: str, path: str) -> None:
     out: dict = {}
     if what == "moe":
@@ -349,6 +443,8 @@ def main(what: str, path: str) -> None:
         decode(out)
     elif what == "decode-unsharded":
         decode_unsharded(out)
+    elif what == "din":
+        din(out)
     else:
         raise SystemExit(f"unknown group {what!r}")
     np.savez(path, **out)

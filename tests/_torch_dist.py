@@ -222,3 +222,39 @@ def _feature_gather(mesh, rank) -> dict:
     feat, served = sharded_feature_gather(torch.from_numpy(ids), local, mesh.group("model"),
                                           S, capacity=4)
     return {"x": x, "ids": ids, "feat": feat.numpy(), "served": served.numpy()}
+
+
+def bursts_graph(n: int):
+    """The graph of `serve_bursts_all`: a community graph with hubs whose
+    rows need continuation rows."""
+    from repro_torch.graph.generators import community_graph
+
+    return community_graph(n=n, community_size=64, intra_degree=4, seed=0)
+
+
+def serve_bursts_all(rank: int, world: int, store_dir: str) -> dict:
+    """`launch/serve_graph.py` `serve_bursts` on (data, model) (2, 2): the
+    grouting smoke config over two storage shards, 48 queries routed by the
+    embed router on rank 0, with `record`. Returns this rank's figures and
+    record."""
+    from repro_torch.configs import grouting
+    from repro_torch.core.storage import build_storage, make_serving_storage
+    from repro_torch.graph.csr import to_padded
+    from repro_torch.launch.serve_graph import serve_bursts
+
+    cfg = dataclasses.replace(grouting.smoke_cfg(), n_storage_shards=2, embed_dim=4)
+    g = bursts_graph(cfg.n_nodes)
+    tier = build_storage(to_padded(g, max_degree=cfg.row_width), n_shards=2, device="cpu")
+    rng = np.random.default_rng(1)
+    emb = GraphEmbedding(coords=rng.standard_normal((g.n, 4)).astype(np.float32),
+                         landmarks=np.arange(4), lm_coords=np.zeros((4, 4), np.float32),
+                         config=EmbedConfig(dim=4))
+    nodes = rng.integers(0, g.n, 48).astype(np.int32)
+    mesh, dev = init_mesh((2, 2), ("data", "model"), "cpu",
+                          store=_store(store_dir, "bursts", world), rank=rank, world_size=world)
+    res = serve_bursts(mesh, dev, cfg, make_serving_storage(tier, mesh.axis_index("model"), dev),
+                       emb if rank == 0 else None, nodes if rank == 0 else None, bursts=3,
+                       backlog=16, say=lambda *a, **k: None, record=True)
+    del res["cache"]
+    dist.destroy_process_group()
+    return res

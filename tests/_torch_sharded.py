@@ -222,7 +222,9 @@ def collectives_all(rank: int, world: int, store_dir: str) -> dict:
                        ("pmean", lambda t: coll.pmean(t, group)),
                        ("invariant", lambda t: coll.invariant(t, group)),
                        ("all_gather0", lambda t: coll.all_gather(t, group, 0)),
-                       ("all_gather1", lambda t: coll.all_gather(t, group, 1))):
+                       ("all_gather1", lambda t: coll.all_gather(t, group, 1)),
+                       ("gather_invariant0", lambda t: coll.gather_invariant(t, group, 0)),
+                       ("gather_invariant1", lambda t: coll.gather_invariant(t, group, 1))):
             xi = x.clone().requires_grad_()
             y = fn(xi)
             wy = torch.arange(y.numel(), dtype=torch.float32).view(y.shape) * (rank + 1)
@@ -455,5 +457,89 @@ def decode_mesh_all(rank: int, world: int, store_dir: str) -> dict:
     meshes = _lm_meshes(store_dir, "decode", rank)
     out = {name: decode_mesh_run(name, meshes[shape, axes])
            for name, (_, shape, axes, _) in C.DECODE_CASES.items()}
+    dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DIN on a mesh
+# ---------------------------------------------------------------------------
+
+
+def din_case(name: str):
+    """(the port's DIN config of case `name`, its parameters {leaf: CPU
+    tensor}, the batch and the retrieval batches {n: batch} as tensors)."""
+    from repro_torch.configs import din as conf
+    from repro_torch.models.recsys.din import param_specs
+
+    cfg = dataclasses.replace(conf.smoke_cfg(), **C.DIN_CASES[name][2])
+    flat = C.din_params({k: s.shape for k, s in param_specs(cfg).items()})
+    batch, retrieval = C.din_batches(cfg.seq_len, cfg.n_items, cfg.n_cats, cfg.d_profile)
+    t = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}  # noqa: E731
+    return cfg, t(flat), t(batch), {n: t(b) for n, b in retrieval.items()}
+
+
+def din_mesh_run(name: str, mesh) -> dict:
+    """Case `name` on this rank, under `DIN_RULES`: its block of the scores,
+    the loss and every leaf's gradient (its shards), one train step (warmup
+    0: the base rate) with its loss and grad norm and the updated shards
+    of the parameters, m and v, then its block of each retrieval batch's
+    scores; the aten ops of all of it ("ops"), and each layout's candidate
+    spec ("cand/N")."""
+    from repro_torch.configs.base import merged_rules
+    from repro_torch.configs.din import DIN_RULES
+    from repro_torch.models.param import local_params
+    from repro_torch.models.recsys import din as D
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import accum_value_and_grad, init_train_state, \
+        make_train_step
+
+    cfg, flat, batch, retrieval = din_case(name)
+    rules = merged_rules(DIN_RULES)
+    lay = D.MeshLayout(cfg, mesh, rules)
+    rows = lay.local_batch(batch)
+    out = {}
+    with _OpNames() as ops:
+        out["score"] = D.score(local_params(flat, lay.specs, mesh), rows, cfg, lay).numpy()
+        loss_of = lambda p, b: D.loss_fn(p, b, cfg, lay)  # noqa: E731
+        state = init_train_state(local_params(flat, lay.specs, mesh))
+        (loss, _), grads = accum_value_and_grad(loss_of, 1)(state.params, rows)
+        out["loss"] = loss.detach().numpy()
+        out.update({f"grad/{k}": v.numpy() for k, v in grads.items()})
+        step = make_train_step(loss_of, AdamWConfig(weight_decay=0.0), warmup=0,
+                               total_steps=10, mesh=mesh, specs=lay.specs)
+        state, m = step(state, rows)
+        out["step/loss"], out["step/grad_norm"] = m["loss"].numpy(), m["grad_norm"].numpy()
+        for tag, t in (("p", state.params), ("m", state.opt_state["m"]),
+                       ("v", state.opt_state["v"])):
+            out.update({f"{tag}/{k}": v.detach().numpy() for k, v in t.items()})
+        for n, rb in retrieval.items():
+            rl = D.MeshLayout(cfg, mesh, rules, n_candidates=n)
+            out[f"retrieval/{n}"] = D.retrieval_scores(local_params(flat, rl.specs, mesh),
+                                                       rl.local_batch(rb), cfg, rl).numpy()
+            out[f"cand/{n}"] = np.asarray(str(rl.cand_axes))
+    out["ops"] = sorted(ops.names)
+    return out
+
+
+def din_mesh_all(rank: int, world: int, store_dir: str) -> dict:
+    """Every case of `C.DIN_CASES` on this rank: {case: `din_mesh_run`'s};
+    and "gather": DIN's `block_gather` on the (2, 2) mesh's model groups,
+    each rank asking for ids of its own."""
+    from repro_torch.models.recsys import din as D
+
+    meshes = _lm_meshes(store_dir, "din", rank)
+    meshes[(4, 1), C.AXES] = ProcessMesh((4, 1), C.AXES)
+    out = {name: din_mesh_run(name, meshes[shape, axes])
+           for name, (shape, axes, _) in C.DIN_CASES.items()}
+    mesh = meshes[(2, 2), C.AXES]
+    table = np.arange(40 * 3, dtype=np.float32).reshape(40, 3)
+    ids = np.random.default_rng([23, rank]).integers(-1, 40, 30).astype(np.int32)
+    ids[:4] = (0, 19, 20, 39)  # the blocks' edges
+    local = local_shard(torch.from_numpy(table), ("model", None), mesh).requires_grad_()
+    feat, served = D.block_gather(torch.from_numpy(ids), local, mesh.group("model"), 2)
+    feat.sum().backward()
+    out["gather"] = {"ids": ids, "feat": feat.detach().numpy(), "served": served.numpy(),
+                     "grad": local.grad.numpy()}
     dist.destroy_process_group()
     return out

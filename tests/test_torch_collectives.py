@@ -6,8 +6,8 @@ Four gloo ranks on a (data, model) mesh of (2, 2) run every collective over
 "data", "model" and the flattened pair, forward and backward, with a loss
 whose weights differ by rank; each result is held to the transpose
 shard_map takes (psum: the identity; enter: a psum; pmean and invariant:
-over the group size; all_gather: a reduce-scatter by sum; all_to_all: the
-reverse exchange). Gloo takes every dtype the port exchanges on CPU tensors.
+over the group size; all_gather: a reduce-scatter by sum; gather_invariant:
+the rank's own block of its cotangent; all_to_all: the reverse exchange). Gloo takes every dtype the port exchanges on CPU tensors.
 """
 
 import numpy as np
@@ -55,7 +55,8 @@ def test_coords_and_groups(port):
 
 @pytest.mark.parametrize("key", list(GROUPS))
 @pytest.mark.parametrize("op", ["psum", "enter", "pmean", "invariant", "all_gather0",
-                                "all_gather1", "all_to_all"])
+                                "all_gather1", "gather_invariant0", "gather_invariant1",
+                                "all_to_all"])
 def test_collective_forward_and_transpose(port, key, op):
     for r, got in enumerate(port):
         members = _members(r, GROUPS[key])
@@ -68,11 +69,13 @@ def test_collective_forward_and_transpose(port, key, op):
             np.testing.assert_array_equal(dx, np.stack([ws[s][me] for s in range(n)]))
             continue
         w = lambda m, shape: np.arange(np.prod(shape), dtype=np.float32).reshape(shape) * (m + 1)
-        if op.startswith("all_gather"):
+        if "gather" in op:
             dim = int(op[-1])
             np.testing.assert_array_equal(y, np.concatenate([_x(m) for m in members], dim))
             blocks = [np.split(w(m, y.shape), n, dim)[me] for m in members]
-            np.testing.assert_array_equal(dx, np.sum(blocks, 0))
+            # all_gather sums every rank's block; gather_invariant takes its own
+            want = np.sum(blocks, 0) if op.startswith("all") else blocks[members.index(r)]
+            np.testing.assert_array_equal(dx, want)
             continue
         total = np.sum([_x(m) for m in members], 0)
         want_y = {"psum": total, "enter": _x(r), "pmean": total / n, "invariant": _x(r)}[op]

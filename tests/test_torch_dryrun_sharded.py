@@ -24,6 +24,13 @@ rank 0 of a `fake` process group (`launch/dryrun.py` `fake_process_mesh`,
     softmax's max and sum and the partial outputs over `kv_seq`).
   - A collective over a group rank 0 is not in runs no op, so the dry run
     counts rank 0's own collectives only.
+  - DIN's four cells under `DIN_RULES` as rank 0 of fake worlds of 256
+    (16x16) and 512 (2x16x16): counted per rank, the tables split over
+    "model" in the per-device state bytes; train_batch's and
+    retrieval_cand's collective bytes equal a reckoning by hand (the
+    lookups' psums over "model", the split layers' activation gathers, the
+    entered inputs' and leaves' backward psums, the loss's and the global
+    norm's psums).
 """
 
 import dataclasses
@@ -226,3 +233,63 @@ def test_a_group_without_rank_zero_runs_no_op():
                             per_rank=True)
     assert none.collectives == {} and none.collective_bytes == 0
     assert one.collectives == {"all-reduce": 1} and one.collective_bytes == 8 * 4
+
+
+def _din_reckoned(shape: str, mesh_kind: str) -> dict:
+    """Each kind's output bytes of rank 0's DIN step, by hand: float32 at
+    full width under DIN_RULES, the tables' rows and every width that
+    divides over "model" split, the batch over ("pod", "data"), the
+    retrieval candidates over "data" (10^6 does not divide by 256)."""
+    from repro_torch.configs import din as conf
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, d = conf.model_cfg(), conf.SHAPES[shape]
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    sizes = dict(zip(mesh.axes, mesh.sizes))
+    n, rows_ways, f32 = sizes["model"], sizes.get("pod", 1) * sizes["data"], 4
+    e2, L = 2 * cfg.embed_dim, cfg.seq_len
+    attn = (4 * e2,) + tuple(cfg.attn_hidden) + (1,)
+    mlp = (2 * e2 + cfg.d_profile,) + tuple(cfg.mlp_hidden) + (1,)
+    split = lambda dims: [i for i in range(len(dims) - 1) if dims[i + 1] % n == 0]  # noqa: E731
+    if shape == "retrieval_cand":
+        nc = d["n_candidates"] // sizes["data"]
+        return {"all-reduce": (L + nc) * e2 * f32,  # the lookups: history, candidates
+                "all-gather": sum(nc * mlp[i + 1] * f32 for i in split(mlp))}
+    B = d["batch"] // rows_ways
+    gather = sum(B * L * attn[i + 1] * f32 for i in split(attn)) + \
+        sum(B * mlp[i + 1] * f32 for i in split(mlp))
+    leaves = (cfg.n_items // n + cfg.n_cats // n) * cfg.embed_dim  # the tables' shards
+    for dims in (attn, mlp):
+        for i in range(len(dims) - 1):
+            out = dims[i + 1] // n if i in split(dims) else dims[i + 1]
+            leaves += dims[i] * out + out
+    reduce = ((B * L + B) * e2 * f32  # the lookups' psums over "model"
+              + 2 * f32  # the loss's psums over the batch axes
+              # the backward: each split layer's entered input, every leaf
+              # entering the batch axes, the global norm's "model" set
+              + sum(B * L * attn[i] * f32 for i in split(attn))
+              + sum(B * mlp[i] * f32 for i in split(mlp))
+              + leaves * f32 + f32)
+    return {"all-reduce": reduce, "all-gather": gather}
+
+
+@functools.lru_cache(maxsize=None)
+def _din_record(shape: str, mesh_kind: str) -> dict:
+    return dryrun.run_cell("din", shape, mesh_kind, None)
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+@pytest.mark.parametrize("shape", ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"])
+def test_din_cell_counted_as_rank_zero(shape, mesh_kind):
+    rec = _din_record(shape, mesh_kind)
+    r, m = rec["roofline"], rec["memory"]
+    assert rec["status"] == "ok" and rec["counted_on"] == "rank0" and rec["meta"]["per_rank"]
+    assert rec["n_devices"] == (256 if mesh_kind == "single" else 512)
+    assert r["collective_bytes"] > 0 and m["temp_bytes"] > 0
+    assert m["peak_bytes"] == m["argument_bytes"] + m["temp_bytes"]
+    # the state a device holds: its shards of the tables, the MLPs whole or
+    # split by column, its rows of the batch
+    assert m["argument_bytes_by_arg"][0] < 18_000_000 and "x None" not in dryrun.result_line(rec)
+    if shape in ("train_batch", "retrieval_cand"):
+        want = _din_reckoned(shape, mesh_kind)
+        assert rec["collective_bytes_by_kind"] == {k: float(v) for k, v in want.items()}

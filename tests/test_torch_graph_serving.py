@@ -373,3 +373,41 @@ def test_serve_graph_entry_point_world_of_one():
     assert out["served"] + out["dropped"] + out["backlog"] == out["arrivals"]
     assert out["backlog"] == 0 and out["dropped"] > 0
     assert out["misses"][-1] < out["misses"][0] <= out["touched"][0]
+
+
+@pytest.fixture(scope="module")
+def bursts(tmp_path_factory):
+    """Each rank's `serve_bursts` figures on (2, 2) (`_torch_dist.serve_bursts_all`)."""
+    return D.spawn(D.serve_bursts_all, 4, str(tmp_path_factory.mktemp("bursts")),
+                   timeout=TIMEOUT_S)
+
+
+def test_serve_bursts_records_every_rank(bursts):
+    """Every rank of a (2, 2) mesh returns its own record of `serve_bursts`:
+    the queries it served, burst by burst, their counts (each what
+    `capped_ball_size` marks less one, whichever processor served it) and
+    the mesh's stats, the same on every rank; together the ranks served
+    what rank 0 placed, every processor some."""
+    from repro_torch.configs import grouting
+    from repro_torch.core.serving import capped_ball_size
+
+    cfg = grouting.smoke_cfg()
+    g = D.bursts_graph(cfg.n_nodes)
+    cap = cfg.row_width * cfg.chain_depth
+    lead = bursts[0]
+    n_bursts = len(lead["record"])
+    assert lead["served"] + lead["dropped"] == lead["arrivals"] and lead["backlog"] == 0
+    served = []
+    for r, run in enumerate(bursts):
+        assert len(run["record"]) == len(run["burst_s"]) == n_bursts
+        assert ("served" in run) == (r == 0)
+        mine = 0
+        for b, (queries, counts, stats) in enumerate(run["record"]):
+            np.testing.assert_array_equal(stats, lead["record"][b][2])
+            assert run["touched"][b] == lead["touched"][b]
+            for q, c in zip(queries.tolist(), counts.tolist()):
+                if q >= 0:
+                    assert c == capped_ball_size(g, q, cfg.hops, cfg.max_frontier, cap) - 1
+                    mine += 1
+        served.append(mine)
+    assert sum(served) == lead["served"] and min(served) > 0, served

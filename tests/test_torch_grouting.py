@@ -29,7 +29,7 @@ from repro.graph.generators import powerlaw_graph as r_powerlaw_graph
 from repro_torch.configs import grouting
 from repro_torch.core.embedding import EmbedConfig, GraphEmbedding
 from repro_torch.core.serving import capped_ball_size, untruncated_size
-from repro_torch.core.storage import build_storage
+from repro_torch.core.storage import build_storage, make_serving_storage
 from repro_torch.distributed.mesh import init_mesh
 from repro_torch.graph.csr import to_padded
 from repro_torch.graph.generators import community_graph, powerlaw_graph
@@ -76,8 +76,8 @@ def _serve_smoke(cfg, nodes_seed=1):
     mesh, dev = init_mesh((1, 1), ("data", "model"), "cpu", store=dist.HashStore(),
                           rank=0, world_size=1)
     try:
-        out = serve_bursts(mesh, dev, cfg, tier, emb, np.concatenate([nodes, nodes]),
-                           bursts=8, backlog=16, say=lambda *a, **k: None, record=True)
+        out = serve_bursts(mesh, dev, cfg, make_serving_storage(tier, 0, dev), emb,
+                           np.concatenate([nodes, nodes]), bursts=8, backlog=16, say=lambda *a, **k: None, record=True)
     finally:
         dist.destroy_process_group()
     assert out["served"] == 48 and out["dropped"] == 0 and out["backlog"] == 0
